@@ -1,0 +1,114 @@
+"""Reference parameters and caches -> the port's tensors.
+
+The reference keeps params as nested dicts of arrays; ``jax.device_get``
+turns them into nested dicts of numpy arrays, bf16 as ml_dtypes' bfloat16.
+These functions take that form, or the flat ``a/b/c`` key form of the
+reference's checkpoints (``repro/training/checkpoint.py::_flatten``), check
+every key and shape against the port's own tree for the config, and return
+nested dicts of tensors.  bf16 arrays are viewed as 16-bit integers and
+then as ``torch.bfloat16``, so no value is rounded on the way.  Only numpy
+is needed: the reference package is never imported.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import registry
+
+SEP = "/"
+
+
+def to_tensor(arr: Any, device: str | torch.device = "cpu",
+              dtype_name: str | None = None) -> torch.Tensor:
+    """One numpy array as a tensor; ``dtype_name='bfloat16'`` marks 16-bit
+    integer storage of bf16 values (the checkpoint format)."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if not arr.flags.writeable:  # jax.device_get hands out read-only views
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16" or dtype_name == "bfloat16":
+        if arr.dtype.itemsize != 2:
+            raise TypeError(f"bf16 storage must be 2 bytes, got {arr.dtype}")
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def _nest(flat: Mapping[str, Any]) -> dict:
+    out: dict = {}
+    for key, value in flat.items():
+        node = out
+        *parents, leaf = key.split(SEP)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out
+
+
+def _is_flat(tree: Mapping) -> bool:
+    return any(SEP in k for k in tree)
+
+
+def _convert(tree: Any, expected: Any, device, path: str,
+             dtypes: Mapping[str, str]) -> Any:
+    if isinstance(expected, dict):
+        if not isinstance(tree, Mapping):
+            raise ValueError(f"{path or '<root>'}: expected a dict")
+        missing = sorted(set(expected) - set(tree))
+        extra = sorted(set(tree) - set(expected))
+        if missing or extra:
+            raise ValueError(f"{path or '<root>'}: missing keys {missing}, "
+                             f"unexpected keys {extra}")
+        return {k: _convert(tree[k], v, device, f"{path}{k}{SEP}", dtypes)
+                for k, v in expected.items()}
+    key = path.rstrip(SEP)
+    t = to_tensor(tree, device, dtypes.get(key))
+    if tuple(t.shape) != tuple(expected.shape):
+        raise ValueError(f"{key}: shape {tuple(t.shape)}, the port expects "
+                         f"{tuple(expected.shape)}")
+    return t
+
+
+def _from_numpy(tree: Mapping, expected: dict, device,
+                dtypes: Mapping[str, str] | None = None) -> dict:
+    if _is_flat(tree):
+        tree = _nest(tree)
+    return _convert(tree, expected, torch.device(device), "", dtypes or {})
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                      device: str | torch.device = "cpu") -> dict:
+    """Reference params (nested or flat numpy) -> the port's param dict."""
+    expected, _ = registry.init_params(None, cfg, device="meta")
+    return _from_numpy(tree, expected, device)
+
+
+def caches_from_numpy(tree: Mapping, cfg: ModelConfig, batch: int,
+                      context: int,
+                      device: str | torch.device = "cpu") -> dict:
+    """Reference KV caches (nested or flat numpy) -> the port's caches."""
+    expected = registry.init_caches(cfg, batch, context, device="meta")
+    return _from_numpy(tree, expected, device)
+
+
+def load_npz_params(path: str, cfg: ModelConfig,
+                    device: str | torch.device = "cpu") -> dict:
+    """Params from a reference checkpoint (``save_checkpoint``'s npz plus
+    its ``.manifest.json``), whose state holds them under ``params``."""
+    with open(path + ".manifest.json") as f:
+        dtypes = json.load(f)["dtypes"]
+    prefix = "params" + SEP
+    with np.load(path) as npz:
+        flat = {k.replace("__", SEP): npz[k] for k in npz.files}
+    flat = {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix)}
+    dtypes = {k[len(prefix):]: v for k, v in dtypes.items()
+              if k.startswith(prefix)}
+    expected, _ = registry.init_params(None, cfg, device="meta")
+    return _from_numpy(flat, expected, device, dtypes)

@@ -1,0 +1,106 @@
+"""Where the serving time goes on the card: prefill and decode under
+``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+
+Builds chip_smoke.py's serving configuration (qwen3-0.6b at full width,
+random bf16 weights from seed 0, ``attn_impl="pallas"``, 8 prompts of 512
+tokens, context 1024), then profiles two windows, each after a warm-up:
+one ``transformer.prefill`` over the prompt batch (the engine's prefill
+call), and 16 decode steps as the engine takes them
+(``registry.decode_step``, the greedy argmax and the copy of the tokens
+to the host).  For each window it prints the wall time, the summed device
+kernel time, the device's busy share, the kernel launches, and the
+kernels that take the most device time, then one JSON line.  It needs a
+card and fails without one.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import registry, transformer
+
+
+def _window(fn, device) -> dict:
+    """Profile one call of fn: wall ms and the CUDA kernels it ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device events")
+    by_name: dict[str, float] = collections.defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "launches": len(kernels),
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+
+
+ARCH, SEED = "qwen3-0.6b", 0
+REQUESTS, PROMPT_LEN, MAX_CONTEXT, DECODE_STEPS = 8, 512, 1024, 16
+
+
+def main() -> None:
+    device = resolve_device("cuda")
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="pallas")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    params, _ = registry.init_params(gen, cfg)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (REQUESTS, PROMPT_LEN))).to(device)
+    caches = registry.init_caches(cfg, REQUESTS, MAX_CONTEXT, device)
+    state = {}
+
+    def prefill():
+        state["logits"], _ = transformer.prefill(params, cfg, tokens, caches)
+
+    def decode():
+        tok = torch.argmax(state["logits"][:, -1, :cfg.vocab], dim=-1)[:, None]
+        for step in range(DECODE_STEPS):
+            logits, _ = registry.decode_step(params, cfg, tok,
+                                             PROMPT_LEN + step, caches)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+            tok.cpu()
+
+    with torch.inference_mode():
+        prefill()
+        decode()                      # warm-up of both windows
+        out = {"card": torch.cuda.get_device_name(device),
+               "config": {"arch": cfg.name, "requests": REQUESTS,
+                          "prompt_len": PROMPT_LEN,
+                          "max_context": MAX_CONTEXT,
+                          "decode_steps": DECODE_STEPS},
+               "prefill": _window(prefill, device),
+               "decode": _window(decode, device)}
+    for name in ("prefill", "decode"):
+        w = out[name]
+        print(f"[profile] {name}: wall {w['wall_ms']:.2f} ms, device busy "
+              f"{w['device_busy_ms']:.2f} ms ({100 * w['busy_share']:.1f}%),"
+              f" {w['launches']} kernel launches")
+        for kname, ms in w["top_kernels_ms"]:
+            print(f"[profile]   {ms:9.3f} ms  {kname}")
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,122 @@
+"""Serving entry point: batched greedy decoding with the paper's memory watch.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        [--smoke] --requests 4 --prompt-len 8 --max-new 32 \
+        [--partition-gb 10] [--device cuda]
+
+Runs on the card (``--device cuda``, the default) on an H100 MIG backend,
+with prefill attention on the hand-written flash kernel.  With
+``--partition-gb`` the engine runs the time-series predictor against that
+slice size and performs the early restart (regrow to the profile the
+predictor asks for) when the converged peak estimate exceeds it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import load_npz_params
+from repro_torch.configs import ALL_ARCHS, ModelConfig, get_config, get_smoke_config
+from repro_torch.core.mig_h100 import MigH100Backend
+from repro_torch.core.partition_state import PartitionBackend
+from repro_torch.core.restart import NeedsLargerPartition
+from repro_torch.device import resolve_device
+from repro_torch.models import registry
+from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
+
+
+def make_requests(cfg: ModelConfig, n: int, prompt_len: int, max_new: int,
+                  seed: int) -> list[Request]:
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i,
+                    prompt=rng.integers(0, cfg.vocab, prompt_len
+                                        ).astype(np.int32),
+                    max_new_tokens=max_new)
+            for i in range(n)]
+
+
+def serve(cfg: ModelConfig, params: dict, requests: list[Request], *,
+          max_context: int, partition_gb: float | None,
+          backend: PartitionBackend, device: str | torch.device,
+          log=print) -> tuple[ServeEngine, list[Request], list[str]]:
+    """The early-restart regrow loop: run the batch on a slice of
+    ``partition_gb``; on :class:`NeedsLargerPartition` regrow to the
+    profile it carries and run again.  Returns (engine, requests, the
+    restart lines)."""
+    restarts: list[str] = []
+    profile_gb = partition_gb
+    while True:
+        engine = ServeEngine(cfg, params,
+                             EngineConfig(max_batch=len(requests),
+                                          max_context=max_context,
+                                          partition_gb=profile_gb,
+                                          predict=profile_gb is not None),
+                             backend=backend, device=device)
+        for r in requests:
+            r.generated.clear()
+        try:
+            return engine, engine.run(requests), restarts
+        except NeedsLargerPartition as e:
+            nxt = e.profile or backend.tightest_profile(
+                (profile_gb or 1.0) * 2)
+            line = (f"[serve] EARLY RESTART: predictor flagged the "
+                    f"{profile_gb:.1f}GB slice -> regrowing to "
+                    f"{nxt.name} ({nxt.mem_gb:.1f}GB)")
+            log(line)
+            restarts.append(line)
+            profile_gb = nxt.mem_gb
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--max-context", type=int, default=256)
+    ap.add_argument("--partition-gb", type=float, default=None)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    print(f"[serve] {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
+          f"family={cfg.family} on {device}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params, _ = registry.init_params(gen, cfg)
+    if args.ckpt:
+        params = load_npz_params(args.ckpt, cfg, device)
+        print(f"[serve] weights from {args.ckpt}")
+
+    reqs = make_requests(cfg, args.requests, args.prompt_len, args.max_new,
+                         args.seed)
+    t0 = time.perf_counter()
+    engine, out, _ = serve(cfg, params, reqs, max_context=args.max_context,
+                           partition_gb=args.partition_gb,
+                           backend=MigH100Backend(), device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.generated) for r in out)
+    print(f"[serve] {n_tok} tokens in {dt:.1f}s "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s)")
+    for r in out[:4]:
+        print(f"  req {r.uid}: {r.generated[:16]}"
+              f"{'...' if len(r.generated) > 16 else ''}")
+    peak = engine.accountant.peak_in_use / 1024 ** 3
+    print(f"[serve] peak live memory {peak:.3f} GB over "
+          f"{len(engine.accountant.history)} iterations")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,186 @@
+"""Grouped-query attention with RoPE, qk-norm, sliding-window / chunked
+masks and KV-cache decode (the dense decoder's self attention).
+
+The plain path (``attn_impl='xla'``) is exact softmax attention in PyTorch;
+``attn_impl='pallas'`` sends full-sequence causal attention through the
+hand-written flash kernel (:func:`repro_torch.kernels.ops.flash_mha`).
+
+KV caches are updated in place: decode and prefill write the new K/V into
+the cache tensors they are given and return those same tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.models.module import ParamBuilder
+
+NEG_INF = -2.3819763e38  # close to bf16 min, used by flash implementations
+GLOBAL_WINDOW = 2 ** 30  # 'window' large enough to mean full attention
+
+
+def init_attention(b: ParamBuilder, cfg: ModelConfig,
+                   stacked: int | None = None) -> None:
+    d, h, kh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    lead = (stacked,) if stacked else ()
+    lax_ = ("layers",) if stacked else ()
+    b.add("wq", lead + (d, h, hd), lax_ + ("embed", "heads", "head_dim"))
+    b.add("wk", lead + (d, kh, hd), lax_ + ("embed", "kv_heads", "head_dim"))
+    b.add("wv", lead + (d, kh, hd), lax_ + ("embed", "kv_heads", "head_dim"))
+    b.add("wo", lead + (h, hd, d), lax_ + ("heads", "head_dim", "embed"))
+    if cfg.qk_norm:
+        b.add("q_norm", lead + (hd,), lax_ + ("norm",), init="ones")
+        b.add("k_norm", lead + (hd,), lax_ + ("norm",), init="ones")
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') as one matmul."""
+    d, nh, hd = w.shape
+    return torch.matmul(x, w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd') as one matmul."""
+    nh, hd, d = wo.shape
+    return torch.matmul(out.flatten(-2), wo.reshape(nh * hd, d))
+
+
+def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    q = _proj_heads(x, params["wq"])
+    k = _proj_heads(x, params["wk"])
+    v = _proj_heads(x, params["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window, chunk,
+               causal: bool = True) -> torch.Tensor:
+    """Additive bias [q_len, k_len] in f32 from position vectors."""
+    dq = q_pos[:, None]
+    dk = k_pos[None, :]
+    ok = torch.ones((dq.shape[0], dk.shape[1]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= dk <= dq
+    if window is not None:
+        ok &= (dq - dk) < window
+    if chunk is not None:
+        ok &= (dq // chunk) == (dk // chunk)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _sdpa(q, k, v, bias, cfg: ModelConfig):
+    """q:[B,Sq,H,hd] k,v:[B,Sk,KH,hd] bias:[Sq,Sk] (or [B,1,Sq,Sk])."""
+    b_, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    q = q.reshape(b_, sq, kh, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
+    scores = scores / math.sqrt(hd)
+    if bias.dim() == 2:
+        scores = scores + bias[None, None, None]
+    else:
+        scores = scores + bias[:, :, None]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b_, sq, h, hd)
+
+
+def _sdpa_qblocked(q, k, v, q_pos, k_pos, window, chunk,
+                   cfg: ModelConfig, block: int):
+    """Exact causal attention over query blocks of ``block`` rows, so live
+    memory holds one [B,H,block,Sk] score slab instead of [B,H,Sq,Sk]."""
+    sq = q.shape[1]
+    outs = []
+    for start in range(0, sq, block):
+        stop = start + block
+        bias = _mask_bias(q_pos[start:stop], k_pos, window, chunk)
+        outs.append(_sdpa(q[:, start:stop], k, v, bias, cfg))
+    return torch.cat(outs, dim=1)
+
+
+def _attend_self(q, k, v, cfg: ModelConfig, pos: torch.Tensor, window,
+                 chunk) -> torch.Tensor:
+    """Causal full-sequence attention of q over k/v at the same positions:
+    the flash kernel for ``attn_impl='pallas'`` (chunked masks excepted),
+    else plain attention, q-blocked when S is a multiple of the block."""
+    s, block = q.shape[1], cfg.attn_q_block
+    if cfg.attn_impl == "pallas" and chunk is None:
+        return ops.flash_mha(q, k, v, causal=True, window=window)
+    if s <= block or s % block != 0:
+        return _sdpa(q, k, v, _mask_bias(pos, pos, window, chunk), cfg)
+    return _sdpa_qblocked(q, k, v, pos, pos, window, chunk, cfg, block)
+
+
+def mha_full(params: dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor, window: int | None = None,
+             chunk: int | None = None) -> torch.Tensor:
+    """Full-sequence causal self attention (training / prefill)."""
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    pos = positions[0] if positions.dim() > 1 else positions
+    return _out_proj(_attend_self(q, k, v, cfg, pos, window, chunk),
+                     params["wo"])
+
+
+def mha_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                cache_k: torch.Tensor, cache_v: torch.Tensor,
+                window: int | None = None,
+                chunk: int | None = None) -> torch.Tensor:
+    """Causal self attention over a prompt x:[B,S,d] at positions 0..S-1
+    that also fills cache_k/v:[B,C,KH,hd] (in place) at 0..S-1.
+
+    Attention reads the K/V back from the cache, cast to q's dtype, as
+    token-by-token decode does, so a bf16 cache rounds K/V the same way.
+    """
+    b_, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b_, s)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    cache_k[:, :s] = k.to(cache_k.dtype)
+    cache_v[:, :s] = v.to(cache_v.dtype)
+    out = _attend_self(q, cache_k[:, :s].to(q.dtype),
+                       cache_v[:, :s].to(q.dtype), cfg, positions[0],
+                       window, chunk)
+    return _out_proj(out, params["wo"])
+
+
+def mha_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+               cache_k: torch.Tensor, cache_v: torch.Tensor, index: int,
+               window: int | None = None, chunk: int | None = None):
+    """One-token decode. x:[B,1,d]; cache_k/v:[B,C,KH,hd] (written in
+    place at ``index``); index: current position.
+    Returns (y, cache_k, cache_v)."""
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    cache_k[:, index:index + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, index:index + 1] = v_new.to(cache_v.dtype)
+    k_pos = torch.arange(cache_k.shape[1], device=x.device)
+    valid = k_pos <= index
+    if window is not None:
+        valid &= (index - k_pos) < window
+    if chunk is not None:
+        valid &= (k_pos // chunk) == (index // chunk)
+    bias = torch.where(valid, 0.0, NEG_INF).float()[None, :]
+    out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias, cfg)
+    return _out_proj(out, params["wo"]), cache_k, cache_v
+
+
+def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, context: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: str | torch.device = "cpu"):
+    """Stacked [L, B, C, KH, hd] caches."""
+    kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (n_layers, batch, context, kh, hd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -1,0 +1,66 @@
+"""Unified model API over the families the port runs (dense, VLM).
+
+A "batch" is a dict:
+    tokens   [B, S] int             (all families)
+    labels   [B, S] int             (training; -1 = masked)
+    patches  [B, vision_tokens, d]  (VLM stub frontend)
+Other families raise NotImplementedError until their slice is ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.transformer import DecoderOutput
+
+
+def init_params(generator: torch.Generator | None, cfg: ModelConfig,
+                device: str | torch.device | None = None
+                ) -> tuple[dict, dict]:
+    """Returns (params, logical-axis specs), drawn from ``generator`` on its
+    device (or on ``device``; ``'meta'`` takes no generator)."""
+    if device is None:
+        device = generator.device if generator is not None else "cpu"
+    return transformer.init_decoder(generator, cfg, device)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict) -> DecoderOutput:
+    return transformer.forward(params, cfg, batch["tokens"],
+                               extra_embeddings=batch.get("patches"))
+
+
+def init_caches(cfg: ModelConfig, batch: int, context: int,
+                device: str | torch.device = "cpu") -> dict:
+    return transformer.init_caches(cfg, batch, context, device)
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                index: int, caches: dict) -> tuple[torch.Tensor, dict]:
+    return transformer.decode_step(params, cfg, token, index, caches)
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Forward over the prompt returning ONLY the last position's logits."""
+    return transformer.forward(params, cfg, batch["tokens"],
+                               extra_embeddings=batch.get("patches"),
+                               last_only=True).logits
+
+
+def make_dummy_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+                     device: str | torch.device = "cpu") -> dict:
+    """Random tokens/labels (and VLM patches) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    out = {
+        "tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int64)),
+        "labels": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int64)),
+    }
+    if cfg.family == "vlm" and cfg.vision_tokens:
+        out["patches"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.vision_tokens, cfg.d_model), dtype=np.float32)
+        ).to(torch.bfloat16)
+    return {k: v.to(device) for k, v in out.items()}

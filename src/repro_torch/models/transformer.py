@@ -1,0 +1,181 @@
+"""Decoder-only transformer stack (dense family).
+
+Parameters carry a leading ``layers`` axis as in the reference; the port
+loops over it in Python, so each layer's window is a plain int (``None``
+for global layers) and full-sequence attention can reach the flash kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed_tokens, init_embedding,
+                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
+                                       unembed)
+from repro_torch.models.module import ParamBuilder
+
+GLOBAL = attn.GLOBAL_WINDOW
+
+
+def layer_pattern(cfg: ModelConfig) -> list[int]:
+    """Per-layer window sizes: GLOBAL for global layers, the local window
+    (sliding or chunk) otherwise."""
+    win = []
+    for i in range(cfg.n_layers):
+        if cfg.layer_is_global(i):
+            win.append(GLOBAL)
+        elif cfg.sliding_window is not None:
+            win.append(cfg.sliding_window)
+        elif cfg.attention_chunk is not None:
+            win.append(cfg.attention_chunk)
+        else:
+            win.append(GLOBAL)
+    return win
+
+
+def _layer_masks(cfg: ModelConfig) -> list[tuple[int | None, int | None]]:
+    """(window, chunk) per layer, with None for 'no limit'."""
+    out = []
+    for win in layer_pattern(cfg):
+        window = None if win >= GLOBAL else win
+        if cfg.attention_chunk is not None:
+            out.append((None, window))
+        else:
+            out.append((window, None))
+    return out
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the dense decoder only "
+            f"(family={cfg.family}, n_experts={cfg.n_experts})")
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+@dataclasses.dataclass
+class DecoderOutput:
+    logits: torch.Tensor
+    aux_loss: torch.Tensor
+
+
+# -- init ---------------------------------------------------------------------------
+
+def init_decoder(generator: torch.Generator | None, cfg: ModelConfig,
+                 device: str | torch.device = "cpu") -> tuple[dict, dict]:
+    _check_supported(cfg)
+    b = ParamBuilder(generator, device)
+    init_embedding(b, cfg)
+    lyr = b.sub("layers")
+    L = cfg.n_layers
+    attn.init_attention(lyr, cfg, stacked=L)
+    init_rmsnorm_stacked(lyr, "norm1", cfg.d_model, L)
+    init_rmsnorm_stacked(lyr, "norm2", cfg.d_model, L)
+    init_mlp(lyr, cfg, stacked=L)
+    init_rmsnorm(b, "final_norm", cfg.d_model)
+    return b.build()
+
+
+def init_rmsnorm_stacked(b: ParamBuilder, name: str, dim: int, L: int):
+    b.add(name, (L, dim), ("layers", "norm"), init="ones")
+
+
+# -- forward (train / prefill) ---------------------------------------------------
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           extra_embeddings: torch.Tensor | None) -> torch.Tensor:
+    x = embed_tokens(params, tokens, cfg)
+    if extra_embeddings is not None:
+        v = extra_embeddings.shape[1]
+        x = torch.cat([extra_embeddings.to(x.dtype), x[:, v:]], dim=1)
+    return x
+
+
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return unembed(params, rmsnorm(x, params["final_norm"], cfg.norm_eps),
+                   cfg)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            extra_embeddings: torch.Tensor | None = None,
+            last_only: bool = False) -> DecoderOutput:
+    """tokens: [B,S] int. extra_embeddings: [B,V,d] stub frontend output
+    (VLM patches) overriding the first V positions."""
+    _check_supported(cfg)
+    b_, s = tokens.shape
+    x = _embed(params, cfg, tokens, extra_embeddings)
+    positions = torch.arange(s, device=x.device).expand(b_, s)
+    for i, (window, chunk) in enumerate(_layer_masks(cfg)):
+        lp = _layer(params, i)
+        x = x + attn.mha_full(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
+                              cfg, positions, window=window, chunk=chunk)
+        x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+    if last_only:
+        x = x[:, -1:]
+    return DecoderOutput(logits=_head(params, cfg, x),
+                         aux_loss=torch.zeros((), device=x.device))
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            caches: dict, extra_embeddings: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Prompt prefill: one forward over the padded [B,S] prompt batch that
+    writes every layer's K/V into ``caches`` (in place, positions 0..S-1)
+    and returns the last position's logits [B,1,V] with the caches.
+
+    This replaces the reference engine's prompt replay, which feeds the
+    prompt one token at a time through ``decode_step``
+    (repro/serving/engine.py:100-104).  Each layer projects q/k/v at
+    positions 0..S-1, stores k/v in the cache dtype, and attends over the
+    K/V as stored in the cache, cast back to q's dtype, exactly what the
+    replay computes token by token.  So the cache contents and the last
+    logits are the replay's, up to the order of the sums, while the
+    attention runs as one causal full-sequence call per layer (through
+    the flash kernel when ``attn_impl == 'pallas'``) instead of S decode
+    steps.
+    """
+    _check_supported(cfg)
+    x = _embed(params, cfg, tokens, extra_embeddings)
+    for i, (window, chunk) in enumerate(_layer_masks(cfg)):
+        lp = _layer(params, i)
+        x = x + attn.mha_prefill(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
+                                 cfg, caches["k"][i], caches["v"][i],
+                                 window=window, chunk=chunk)
+        x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+    return _head(params, cfg, x[:, -1:]), caches
+
+
+# -- decode ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, context: int,
+                device: str | torch.device = "cpu") -> dict:
+    _check_supported(cfg)
+    if cfg.kv_quant or cfg.windowed_cache:
+        raise NotImplementedError(
+            "the port has the default bf16 [L,B,C,KH,hd] cache only")
+    k, v = attn.init_kv_cache(cfg, cfg.n_layers, batch, context,
+                              device=device)
+    return {"k": k, "v": v}
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                index: int, caches: dict) -> tuple[torch.Tensor, dict]:
+    """token: [B,1] int; index: position.  Returns (logits [B,1,V], caches)
+    with the caches updated in place."""
+    _check_supported(cfg)
+    x = embed_tokens(params, token, cfg)
+    for i, (window, chunk) in enumerate(_layer_masks(cfg)):
+        lp = _layer(params, i)
+        out, _, _ = attn.mha_decode(
+            lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg, caches["k"][i],
+            caches["v"][i], index, window=window, chunk=chunk)
+        x = x + out
+        x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+    return _head(params, cfg, x), caches

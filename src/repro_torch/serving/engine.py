@@ -1,0 +1,176 @@
+"""Batched serving engine with allocator instrumentation.
+
+The engine runs prefill + greedy decode for a batch of requests; the
+:class:`MemoryAccountant` records per-iteration requested/live bytes
+(params, KV cache growth, activation churn), and the
+:class:`PeakMemoryPredictor` watches the series.  When the converged
+prediction exceeds the partition the engine raises
+:class:`NeedsLargerPartition` (the early restart) and the launcher
+regrows the slice.  Same fields, accounting and restart trade as the
+reference engine (``repro.serving.engine``); prefill is one forward over
+the prompt batch (:func:`repro_torch.models.transformer.prefill`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.memory.accountant import MemoryAccountant, pytree_nbytes
+from repro_torch.core.memory.timeseries import PeakMemoryPredictor
+from repro_torch.core.partition_state import PartitionBackend, PartitionProfile
+from repro_torch.core.restart import NeedsLargerPartition, early_restart_target
+from repro_torch.device import resolve_device
+from repro_torch.models import registry, transformer
+from repro_torch.models.module import tree_leaves
+
+GB = 1024 ** 3
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # [S] int32
+    max_new_tokens: int
+    generated: list[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    max_batch: int = 8
+    max_context: int = 512
+    partition_gb: float | None = None      # slice the engine believes it has
+    predict: bool = True                   # paper: time-series early restart
+    #: SLO-aware restart trade: when both are set, the engine restarts as
+    #: soon as the predictor's graded OOM risk prices the expected crash
+    #: (``risk * crash_cost_s``) above one restart (``restart_cost_s``).
+    #: Left at 0.0, the paper's binary trigger is unchanged.
+    crash_cost_s: float = 0.0
+    restart_cost_s: float = 0.0
+
+
+class ServeEngine:
+    """Greedy batched decode over a fixed request batch, on ``device``
+    (the card unless the caller passes ``device='cpu'``)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict,
+                 engine_cfg: EngineConfig,
+                 backend: PartitionBackend | None = None,
+                 device: str | torch.device | None = None) -> None:
+        self.device = resolve_device(device)
+        for leaf in tree_leaves(params):
+            if leaf.device.type != self.device.type:
+                raise ValueError(f"params on {leaf.device}, engine on "
+                                 f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = engine_cfg
+        self.backend = backend
+        self._reset_run_state()
+        self._params_bytes = pytree_nbytes(params)
+
+    def _reset_run_state(self) -> None:
+        """Fresh per-run accounting: a second batch on the same engine must
+        not inherit the previous run's live watermark nor its predictor."""
+        self.accountant = MemoryAccountant()
+        self.predictor = PeakMemoryPredictor(max_iter=self.ecfg.max_context)
+        self._last_live = 0.0
+
+    # -- serving loop ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def run(self, requests: list[Request]) -> list[Request]:
+        cfg, ecfg = self.cfg, self.ecfg
+        if len(requests) > ecfg.max_batch:
+            raise ValueError(f"{len(requests)} requests > max_batch "
+                             f"{ecfg.max_batch}")
+        self._reset_run_state()
+        b = len(requests)
+        prompt_len = max(len(r.prompt) for r in requests)
+        caches = registry.init_caches(cfg, b, ecfg.max_context, self.device)
+
+        # prefill: one forward over the padded prompt batch fills the cache
+        toks = np.zeros((b, prompt_len), np.int64)
+        for i, r in enumerate(requests):
+            toks[i, :len(r.prompt)] = r.prompt
+        tokens = torch.from_numpy(toks).to(self.device)
+        logits, caches = transformer.prefill(self.params, cfg, tokens, caches)
+        self._note_iteration(caches, prompt_len)
+
+        # decode
+        next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+        for step in range(max(r.max_new_tokens for r in requests)):
+            pos = prompt_len + step
+            if pos >= ecfg.max_context:
+                break
+            logits, caches = registry.decode_step(self.params, cfg, next_tok,
+                                                  pos, caches)
+            next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+            toks_np = next_tok[:, 0].cpu().numpy()
+            for i, r in enumerate(requests):
+                if not r.done:
+                    r.generated.append(int(toks_np[i]))
+            self._check_memory(caches, pos)
+        return requests
+
+    # -- instrumentation (paper §3.2.2) --------------------------------------------
+
+    def _live_bytes(self, caches, upto: int) -> float:
+        """Live = params + the *used* prefix of the KV cache + activations.
+
+        The cache tensor is preallocated at max_context; physically-used
+        bytes grow with the context, the growth the predictor must catch.
+        """
+        cache_total = pytree_nbytes(caches)
+        frac = min(1.0, upto / self.ecfg.max_context)
+        if self.cfg.family == "ssm":
+            frac = 1.0  # constant-size recurrent state
+        act = self._params_bytes * 0.002 + 4 * self.cfg.d_model * 1024
+        return self._params_bytes + cache_total * frac + act
+
+    def _note_iteration(self, caches, upto: int) -> None:
+        live = self._live_bytes(caches, upto)
+        churn = 2 * self.cfg.d_model * max(self.cfg.d_ff, self.cfg.d_model) \
+            * 2e-3 + live * 0.01
+        self.accountant.note_alloc(churn + max(0.0, live - self._last_live))
+        self.accountant.note_live(live)
+        self._last_live = live
+        self.accountant.end_iteration()
+
+    def _restart_now(self, partition_bytes: float, pred) -> bool:
+        """The early-restart decision: the graded SLO trade when priced
+        (expected crash seconds vs one restart), else the paper's binary
+        converged-prediction threshold."""
+        if self.ecfg.crash_cost_s > 0.0 and self.ecfg.restart_cost_s > 0.0:
+            if not pred.converged:
+                return False
+            risk = self.predictor.oom_risk(partition_bytes, pred)
+            return risk * self.ecfg.crash_cost_s > self.ecfg.restart_cost_s
+        return self.predictor.will_oom(partition_bytes, pred)
+
+    def _check_memory(self, caches, upto: int) -> None:
+        self._note_iteration(caches, upto)
+        if not (self.ecfg.predict and self.ecfg.partition_gb):
+            return
+        stats = self.accountant.history[-1]
+        pred = self.predictor.observe(stats.requested_bytes,
+                                      stats.reuse_ratio)
+        if self._restart_now(self.ecfg.partition_gb * GB, pred):
+            target = None
+            if self.backend is not None:
+                target = early_restart_target(self.backend,
+                                              pred.peak_mem_bytes / GB)
+            raise NeedsLargerPartition(
+                target or _synthetic_profile(pred.peak_mem_bytes / GB))
+
+
+def _synthetic_profile(mem_gb: float) -> PartitionProfile:
+    return PartitionProfile(name=f"needs-{mem_gb:.1f}gb", mem_gb=mem_gb,
+                            compute_fraction=0.0)
