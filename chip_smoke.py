@@ -6,14 +6,19 @@
 Phases, each raising on failure (the script then exits non-zero):
 
 1. card: name and power limit from nvidia-smi;
-2. build: every kernel source under src/repro_torch/kernels/csrc with nvcc;
+2. build: every kernel source under src/repro_torch/kernels/csrc with nvcc
+   (flash_attention.cu and ssd_scan.cu, one nvcc each, started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes and a few edge cases, with times;
+   the serving paths' shapes and a few edge cases, with times;
 4. serving: qwen3-0.6b at full width (random bf16 weights from a seed)
    through ServeEngine.run with the prefill on the flash kernel, counting
-   the kernel's launches in that run;
+   the kernels' launches in that run;
 5. early restart: the regrow loop of repro_torch.launch.serve on a slice
-   smaller than the weights.
+   smaller than the weights;
+4b. serving: mamba2-2.7b at full width through ServeEngine.run with the
+   prefill's SSD on the chunk-scan kernel, counting the launches, after
+   qwen3's weights are freed; then the f32 smoke config's greedy tokens on
+   both SSD paths.
 
 It prints a JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Without a card it fails at once.
@@ -32,6 +37,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "qwen3-0.6b"
+SSM_ARCH = "mamba2-2.7b"
 SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -40,11 +46,26 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # tolerances of the reference's own kernel tests (tests/test_kernels.py:37,52)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# prefill logits, flash kernel vs plain attention, both on bf16 weights and
-# activations: the plain path rounds scores and probabilities to bf16, the
-# kernel keeps them in f32; 28 layers of bf16 residual stream carry that
-# difference to the logits (relative to the largest logit)
+# ... and of its SSD tests (tests/test_kernels.py:99,123); the final state
+# is f32 whatever x's dtype, so it is held to the f32 tolerance
+SSD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+SSD_STATE_TOL = 2e-4
+# qwen3 prefill logits, flash kernel vs plain attention, both on bf16
+# weights and activations: the plain path rounds scores and probabilities
+# to bf16, the kernel keeps them in f32; 28 layers of bf16 residual stream
+# carry that difference to the logits (relative to the largest logit)
 PREFILL_REL_TOL = 5e-2
+# mamba2 prefill logits on the same random weights cast to f32, SSD kernel
+# vs plain chunked SSD: both sum in f32 in other orders (~1e-6 a layer),
+# and 64 layers amplify that (relative to the largest logit)
+SSM_PREFILL_F32_REL_TOL = 1e-3
+# mamba2 on its bf16 weights, layer by layer: each layer's mixer output on
+# the kernel against the plain chunked SSD, both fed the plain path's
+# residual stream (relative to the layer's largest output).  The last
+# logits are not compared in bf16: over 64 random layers two plain paths
+# that differ only in the chunk already disagree by ~0.1 of the largest
+# logit.
+SSM_LAYER_REL_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -140,97 +161,260 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
-        "max_err": errors["prefill-bf16"], "kernel_ms": kernel_ms,
         "case_max_abs_err": errors,
     }
 
 
-def phase_serving(torch, fa, cfg, params) -> dict:
-    from repro_torch.core.mig_h100 import MigH100Backend
-    from repro_torch.launch.serve import make_requests
-    from repro_torch.models import registry, transformer
-    from repro_torch.serving.engine import EngineConfig, ServeEngine
+def ssd_work(b, s, h, p, n, chunk, itemsize):
+    """Bytes (x, dt, a, B, C read once; y and the final state written once)
+    and the FLOPs the function needs: per (b, chunk) one causal C B^T (2 N
+    per pair i <= j; B and C are shared by the heads), and per (b, h,
+    chunk) scores @ dt x over the same pairs (2 P each), the state update
+    (2 Q N P) and, after the first chunk, whose state is zero, C . state
+    (2 Q N P)."""
+    nbytes = (2 * itemsize * b * s * h * p
+              + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n))
+    flops = 0
+    for start in range(0, s, chunk):
+        q = min(chunk, s - start)
+        pairs = q * (q + 1) // 2
+        inter = 2 * q * n * p if start else 0
+        flops += b * 2 * n * pairs + b * h * (2 * p * pairs
+                                              + 2 * q * n * p + inter)
+    return nbytes, flops
 
-    n_req, prompt_len, max_new, context = 8, 512, 64, 1024
-    reqs = make_requests(cfg, n_req, prompt_len, max_new, SEED)
+
+def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked) -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+
+    def inputs(b, s, h, p, n, dtype):
+        # the reference tests' SSD inputs (tests/test_kernels.py:81-90)
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = (rnd(b, s, h, p) * 0.5).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(b, s, h))
+        a = -torch.exp(rnd(h) * 0.2)
+        return x, dt, a, rnd(b, s, n) * 0.3, rnd(b, s, n) * 0.3
+
+    # (name, B, S, H, P, N, chunk, dtype); the first two are the serving
+    # prefill's shape (mamba2-2.7b: 80 heads of P=64, N=128, chunk 256)
+    cases = [
+        ("prefill-bf16", 8, 512, 80, 64, 128, 256, torch.bfloat16),
+        ("prefill-f32", 8, 512, 80, 64, 128, 256, torch.float32),
+        ("ragged-s200", 8, 200, 80, 64, 128, 256, torch.float32),
+        ("chunk64-s512", 8, 512, 80, 64, 128, 64, torch.bfloat16),
+        ("one-partial-chunk-s100", 8, 100, 80, 64, 128, 256, torch.float32),
+        ("h1", 8, 512, 1, 64, 128, 256, torch.bfloat16),
+    ]
+    errors = {}
+    for name, b, s, h, p, n, chunk, dtype in cases:
+        args = inputs(b, s, h, p, n, dtype)
+        y, state = ssd_mixer(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, state_ref = ssd_ref(*args)
+        tol = SSD_TOL[str(dtype).split(".")[1]]
+        err_y = (y.float() - y_ref.float()).abs()
+        err_s = (state - state_ref).abs()
+        errors[name] = float(err_y.max())
+        print(f"[kernels] ssd_scan {name}: y max_abs_err {errors[name]:.3e} "
+              f"(tol {tol}), state max_abs_err {float(err_s.max()):.3e} "
+              f"(tol {SSD_STATE_TOL})", flush=True)
+        bad = (bool((err_y > tol + tol * y_ref.float().abs()).any())
+               or bool((err_s > SSD_STATE_TOL
+                        + SSD_STATE_TOL * state_ref.abs()).any())
+               or not bool(torch.isfinite(y).all())
+               or not bool(torch.isfinite(state).all()))
+        if bad:
+            raise AssertionError(f"ssd_scan {name}: kernel disagrees with "
+                                 f"ssd_ref (y err {errors[name]}, state err "
+                                 f"{float(err_s.max())})")
+
+    # times at the serving prefill's shape; the plain version is a 512-step
+    # loop, so it is timed over fewer calls.  The plain chunked SSD (the
+    # model's ssm_impl="xla" path) is timed beside it.
+    b, s, h, p, n, chunk = 8, 512, 80, 64, 128, 256
+    args = inputs(b, s, h, p, n, torch.bfloat16)
+    kernel_ms = timed_ms(torch, lambda: ssd.ssd_scan(*args, chunk=chunk))
+    plain_ms = timed_ms(torch, lambda: ssd_ref(*args), n=3, warmup=1)
+    chunked_ms = timed_ms(torch, lambda: ssd_chunked(*args, chunk), n=5,
+                          warmup=1)
+    nbytes, flops = ssd_work(b, s, h, p, n, chunk, 2)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    print(f"[kernels] ssd_scan B={b} S={s} H={h} P={p} N={n} Q={chunk} x "
+          f"bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"plain chunked {chunked_ms:.4f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP); no "
+          f"single PyTorch call computes it", flush=True)
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:29",
+        "max_abs_err": errors["prefill-bf16"],
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "plain_chunked_ms": chunked_ms,
+        "case_max_abs_err": errors,
+    }
+
+
+N_REQ, PROMPT_LEN, MAX_NEW, CONTEXT = 8, 512, 64, 1024
+
+
+def serving_requests(torch, cfg):
+    """The serving phases' requests and their prompt batch on the card."""
+    from repro_torch.launch.serve import make_requests
+    reqs = make_requests(cfg, N_REQ, PROMPT_LEN, MAX_NEW, SEED)
     tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(
         "cuda", torch.int64)
+    return reqs, tokens
 
-    # prefill through the flash kernel against the plain attention path
-    last = {}
+
+def prefill_logits(torch, cfg, params, tokens, **changes):
+    """Last logits [B,1,V] in f32 of the engine's prefill, with the config
+    fields in ``changes`` replaced."""
+    from repro_torch.models import registry
+    c = dataclasses.replace(cfg, **changes)
     with torch.inference_mode():
-        for impl in ("pallas", "xla"):
-            c = dataclasses.replace(cfg, attn_impl=impl)
-            caches = registry.init_caches(c, n_req, context, "cuda")
-            last[impl], _ = transformer.prefill(params, c, tokens, caches)
-        caches = registry.init_caches(cfg, n_req, context, "cuda")
-        prefill_ms = timed_ms(torch, lambda: transformer.prefill(
-            params, cfg, tokens, caches), n=5, warmup=1)
-    ref = last["xla"].float()
-    rel = float((last["pallas"].float() - ref).abs().max()
-                / ref.abs().max())
-    print(f"[serving] prefill last logits, flash vs plain: rel err "
-          f"{rel:.3e} (tol {PREFILL_REL_TOL})", flush=True)
-    if not (rel < PREFILL_REL_TOL
-            and bool(torch.isfinite(last["pallas"]).all())):
-        raise AssertionError(f"prefill logits disagree: rel err {rel}")
+        caches = registry.init_caches(c, tokens.shape[0], CONTEXT, "cuda")
+        out, _ = registry.prefill_caches(params, c, tokens, caches)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{cfg.name} prefill {changes}: non-finite")
+    return out.float()
 
-    # the main path, with the kernel's launch count read around it
+
+def rel_err(out, ref) -> float:
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def check_attn_prefill(torch, cfg, params, tokens) -> dict:
+    rel = rel_err(prefill_logits(torch, cfg, params, tokens,
+                                 attn_impl="pallas"),
+                  prefill_logits(torch, cfg, params, tokens, attn_impl="xla"))
+    print(f"[serving] {cfg.name} prefill last logits, flash vs plain: rel "
+          f"err {rel:.3e} (tol {PREFILL_REL_TOL})", flush=True)
+    if not rel < PREFILL_REL_TOL:
+        raise AssertionError(f"prefill logits disagree: rel err {rel}")
+    return {"prefill_kernel_vs_plain_rel_err": rel}
+
+
+def check_ssm_prefill(torch, cfg, params, tokens) -> dict:
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import embed_tokens, rmsnorm
+    from repro_torch.models.module import cast_tree
+    p32 = cast_tree(params, torch.float32)
+    rel32 = rel_err(prefill_logits(torch, cfg, p32, tokens,
+                                   ssm_impl="pallas"),
+                    prefill_logits(torch, cfg, p32, tokens, ssm_impl="xla"))
+    del p32
+    torch.cuda.empty_cache()
+    print(f"[serving] {cfg.name} prefill last logits on f32 weights, SSD "
+          f"kernel vs plain: rel err {rel32:.3e} (tol "
+          f"{SSM_PREFILL_F32_REL_TOL})", flush=True)
+    if not rel32 < SSM_PREFILL_F32_REL_TOL:
+        raise AssertionError(f"f32 prefill logits disagree: rel err {rel32}")
+    kernel = dataclasses.replace(cfg, ssm_impl="pallas")
+    plain = dataclasses.replace(cfg, ssm_impl="xla")
+    rels = []
+    with torch.inference_mode():
+        x = embed_tokens(params, tokens, cfg)
+        for i in range(cfg.n_layers):
+            lp = {k: v[i] for k, v in params["layers"].items()}
+            h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+            ref = ssm.ssm_forward(lp, h, plain)
+            out = ssm.ssm_forward(lp, h, kernel)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"layer {i}: non-finite mixer output")
+            rels.append(rel_err(out.float(), ref.float()))
+            x = x + ref
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    print(f"[serving] {cfg.name} bf16 mixer output, SSD kernel vs plain, "
+          f"layer by layer: max rel err {rels[worst]:.3e} at layer {worst}, "
+          f"median {float(np.median(rels)):.3e} (tol {SSM_LAYER_REL_TOL})",
+          flush=True)
+    if not rels[worst] < SSM_LAYER_REL_TOL:
+        raise AssertionError(f"bf16 layer {worst}: kernel vs plain rel err "
+                             f"{rels[worst]}")
+    return {"prefill_f32_kernel_vs_plain_rel_err": rel32,
+            "layer_bf16_kernel_vs_plain_max_rel_err": rels[worst]}
+
+
+def phase_serving(torch, counters, cfg, params, check_prefill,
+                  want_launches) -> dict:
+    """Full-width serving through ServeEngine.run: ``check_prefill`` holds
+    the prefill's last logits on the kernel path against the plain path,
+    then the run goes with every kernel's launch count set to 0 just
+    before it and read just after; ``want_launches`` maps each kernel
+    module's name to the launches the run must make."""
+    from repro_torch.core.mig_h100 import MigH100Backend
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+
+    reqs, tokens = serving_requests(torch, cfg)
+    checks = check_prefill(torch, cfg, params, tokens)
+    with torch.inference_mode():
+        caches = registry.init_caches(cfg, N_REQ, CONTEXT, "cuda")
+        prefill_ms = timed_ms(torch, lambda: registry.prefill_caches(
+            params, cfg, tokens, caches), n=5, warmup=1)
+        del caches
+
+    # the main path, with the kernels' launch counts read around it
     engine = ServeEngine(cfg, params,
-                         EngineConfig(max_batch=n_req, max_context=context,
+                         EngineConfig(max_batch=N_REQ, max_context=CONTEXT,
                                       predict=False),
                          backend=MigH100Backend(), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    for mod in counters.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     out = engine.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = fa.launches
-    print(f"[serving] flash_attention launches in ServeEngine.run: "
+    launches = {name: mod.launches for name, mod in counters.items()}
+    print(f"[serving] {cfg.name} kernel launches in ServeEngine.run: "
           f"{launches} (layers {cfg.n_layers})", flush=True)
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the flash kernel {launches} "
-                             f"times, want {cfg.n_layers}")
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches}, want {want_launches}")
     n_tok = sum(len(r.generated) for r in out)
-    if n_tok != n_req * max_new or not all(
+    if n_tok != N_REQ * MAX_NEW or not all(
             0 <= t < cfg.vocab for r in out for t in r.generated):
         raise AssertionError(f"bad generations: {n_tok} tokens")
-    if len(engine.accountant.history) != 1 + max_new:
+    if len(engine.accountant.history) != 1 + MAX_NEW:
         raise AssertionError("accountant missed iterations")
     stats = {
-        "arch": cfg.name, "requests": n_req, "prompt_len": prompt_len,
-        "new_tokens": max_new, "max_context": context,
+        "arch": cfg.name, "requests": N_REQ, "prompt_len": PROMPT_LEN,
+        "new_tokens": MAX_NEW, "max_context": CONTEXT,
         "prefill_ms": prefill_ms, "run_s": run_s,
-        "decode_ms_per_step": (run_s * 1e3 - prefill_ms) / max_new,
+        "decode_ms_per_step": (run_s * 1e3 - prefill_ms) / MAX_NEW,
         "tokens_per_s": n_tok / run_s,
         "accountant_peak_in_use_gb": engine.accountant.peak_in_use / 2**30,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-        "flash_launches": launches,
-        "prefill_flash_vs_plain_rel_err": rel,
+        "launches": launches, **checks,
     }
     print(f"[serving] {json.dumps(stats)}", flush=True)
     print(f"[serving] req 0: {out[0].generated[:16]}", flush=True)
     return stats
 
 
-def phase_smoke_tokens(torch) -> None:
+def phase_smoke_tokens(torch, arch, impl_field) -> None:
     """Greedy tokens of the 2-layer smoke config with f32 weights: the
-    flash kernel path and the plain path must pick the same tokens."""
+    kernel path and the plain path must pick the same tokens."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import registry
     from repro_torch.models.module import cast_tree
     from repro_torch.serving.engine import EngineConfig, ServeEngine
 
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     params = cast_tree(registry.init_params(gen, cfg)[0], torch.float32)
     got = {}
     for impl in ("pallas", "xla"):
-        c = dataclasses.replace(cfg, attn_impl=impl)
+        c = dataclasses.replace(cfg, **{impl_field: impl})
         reqs = make_requests(c, 4, 100, 24, SEED)
         eng = ServeEngine(c, params, EngineConfig(max_batch=4,
                                                   max_context=256,
@@ -238,10 +422,10 @@ def phase_smoke_tokens(torch) -> None:
                           device="cuda")
         got[impl] = [r.generated for r in eng.run(reqs)]
     if got["pallas"] != got["xla"]:
-        raise AssertionError("smoke config: flash and plain paths "
-                             "generated different tokens")
-    print(f"[smoke] f32 smoke config: identical greedy tokens on both "
-          f"attention paths ({sum(map(len, got['xla']))} tokens)",
+        raise AssertionError(f"{arch} smoke config: kernel and plain paths "
+                             f"generated different tokens")
+    print(f"[smoke] {arch} f32 smoke config: identical greedy tokens on both "
+          f"{impl_field} paths ({sum(map(len, got['xla']))} tokens)",
           flush=True)
 
 
@@ -282,9 +466,11 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ops import flash_mha
-    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ops import flash_mha, ssd_mixer
+    from repro_torch.kernels.ref import attention_ref, ssd_ref
     from repro_torch.models import registry
+    from repro_torch.models.ssm import ssd_chunked
 
     # plain versions in full f32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -306,21 +492,37 @@ def main() -> int:
                 print(f"[build] {res.name}: {line.strip()}", flush=True)
 
     # 3. each kernel against its plain version
-    kernel = phase_kernels(torch, fa, flash_mha, attention_ref)
+    flash = phase_kernels(torch, fa, flash_mha, attention_ref)
+    scan = phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked)
+    counters = {"flash_attention": fa, "ssd_scan": ssd}
 
-    # 4. full-width serving on the flash prefill
-    phase_smoke_tokens(torch)
+    # 4. full-width qwen3 serving on the flash prefill
+    phase_smoke_tokens(torch, ARCH, "attn_impl")
     cfg = dataclasses.replace(get_config(ARCH), attn_impl="pallas")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     params, _ = registry.init_params(gen, cfg)
-    serving = phase_serving(torch, fa, cfg, params)
-    kernel["launches"] = serving["flash_launches"]
+    serving = phase_serving(torch, counters, cfg, params, check_attn_prefill,
+                            {"flash_attention": cfg.n_layers, "ssd_scan": 0})
+    flash["launches"] = serving["launches"]["flash_attention"]
 
     # 5. early restart and regrow (serve prints each restart line)
     phase_restart(cfg, params)
 
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    # 4b. full-width mamba2 serving on the SSD prefill, on its own memory
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_impl="pallas")
+    gen.manual_seed(SEED)
+    params, _ = registry.init_params(gen, cfg)
+    serving = phase_serving(torch, counters, cfg, params, check_ssm_prefill,
+                            {"flash_attention": 0, "ssd_scan": cfg.n_layers})
+    scan["launches"] = serving["launches"]["ssd_scan"]
+    del params
+    torch.cuda.empty_cache()
+    phase_smoke_tokens(torch, SSM_ARCH, "ssm_impl")
+
+    print(json.dumps({"kernels": [flash, scan]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Same fields and defaults as :class:`repro.configs.base.ModelConfig`, so a
 config built for one package describes the same model in the other.  The
-port runs only the dense decoder path for now; the fields of the other
-families are kept so that configs stay field-for-field comparable.
+port runs the dense decoder and the Mamba2 (ssm) stack for now; the fields
+of the other families are kept so that configs stay field-for-field
+comparable.
 """
 
 from __future__ import annotations
@@ -64,6 +65,8 @@ class ModelConfig:
     # 'xla' = plain blocked attention; 'pallas' = the hand-written flash
     # kernel (kernels/csrc/flash_attention.cu on the card)
     attn_impl: str = "xla"
+    # 'xla' = plain chunked SSD (models/ssm.ssd_chunked); 'pallas' = the
+    # hand-written SSD chunk-scan kernel (kernels/csrc/ssd_scan.cu)
     ssm_impl: str = "xla"
     source: str = ""                     # citation for the config
 

@@ -34,3 +34,30 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)  # fully-masked rows
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b_in: torch.Tensor, c_in: torch.Tensor,
+            state0: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (non-chunked) SSD recurrence, the exact oracle.
+
+    x: [B,S,H,P]; dt: [B,S,H] (post-softplus); a: [H] (negative);
+    b_in/c_in: [B,S,N].  Returns (y [B,S,H,P] in x's dtype, final_state
+    [B,H,P,N] in f32).
+    """
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if state0 is None
+             else state0.float())
+    dt = dt.float()
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * a)                          # [B,H]
+        inject = torch.einsum("bhp,bn->bhpn",
+                              dt[:, t, :, None] * x[:, t].float(),
+                              b_in[:, t].float())
+        state = state * decay[..., None, None] + inject
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c_in[:, t].float()))
+    return torch.stack(ys, dim=1).to(x.dtype), state

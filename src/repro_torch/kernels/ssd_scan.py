@@ -1,0 +1,100 @@
+"""Wrapper of the hand-written Hopper SSD chunk-scan kernel.
+
+``ssd_scan`` takes the model layout (x [B,S,H,P], dt [B,S,H], a [H],
+b/c [B,S,N]) and computes the Mamba2 SSD recurrence chunk by chunk, with
+the state carried in f32; it returns y in x's dtype and the final state
+[B,H,P,N] in f32.  A tensor on the CPU goes to the plain version
+(:func:`repro_torch.kernels.ref.ssd_ref`); a CUDA tensor goes to the kernel
+in ``csrc/ssd_scan.cu``, or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import ssd_ref
+
+HEAD_DIMS = (16, 32, 64, 128)   # P
+MAX_STATE = 128                 # N
+MAX_CHUNK = 1024                # Q
+DTYPES = (torch.float32, torch.bfloat16)
+
+#: kernel launches in this process; only CUDA calls count
+launches = 0
+
+
+@functools.cache
+def _entry():
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = lib.ssd_scan_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+           b_in: torch.Tensor, c_in: torch.Tensor, chunk: int) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"want x [B,S,H,P]; got {tuple(x.shape)}")
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1] if b_in.dim() == 3 else -1
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,)
+            or tuple(b_in.shape) != (bsz, s, n)
+            or tuple(c_in.shape) != (bsz, s, n)):
+        raise ValueError(f"want dt [B,S,H], a [H], b/c [B,S,N] for x "
+                         f"{tuple(x.shape)}; got {tuple(dt.shape)}, "
+                         f"{tuple(a.shape)}, {tuple(b_in.shape)}, "
+                         f"{tuple(c_in.shape)}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x must be one of {DTYPES}, got {x.dtype}")
+    for name, t in (("dt", dt), ("a", a), ("b", b_in), ("c", c_in)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if len({t.device for t in (x, dt, a, b_in, c_in)}) != 1:
+        raise ValueError("x, dt, a, b and c must be on one device")
+    if p not in HEAD_DIMS:
+        raise ValueError(f"head dim P={p} not in {HEAD_DIMS}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"state dim N={n} outside [1, {MAX_STATE}]")
+    if not 1 <= chunk <= MAX_CHUNK or s == 0 or s % chunk:
+        raise ValueError(f"S={s} must be a positive multiple of the chunk "
+                         f"{chunk}, and the chunk in [1, {MAX_CHUNK}]")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_in: torch.Tensor, c_in: torch.Tensor, *, chunk: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,H,P]; dt: [B,S,H] (post-softplus); a: [H] (< 0);
+    b_in/c_in: [B,S,N] -> (y [B,S,H,P] in x's dtype, final state
+    [B,H,P,N] f32).  S must be a multiple of ``chunk``."""
+    global launches
+    _check(x, dt, a, b_in, c_in, chunk)
+    if x.device.type == "cpu":
+        return ssd_ref(x, dt, a, b_in, c_in)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_scan for device {x.device}")
+    if not all(t.is_contiguous() for t in (x, dt, a, b_in, c_in)):
+        raise ValueError("x, dt, a, b and c must be contiguous")
+    fn, err = _entry()
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    y = torch.empty_like(x)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(),
+                c_in.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, h,
+                p, n, chunk, int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan launch failed: {err(rc).decode()} "
+                           f"(cudaError {rc})")
+    launches += 1
+    return y, state

@@ -1,13 +1,14 @@
 """Where the serving time goes on the card: prefill and decode under
 ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch qwen3-0.6b | mamba2-2.7b]
 
-Builds chip_smoke.py's serving configuration (qwen3-0.6b at full width,
-random bf16 weights from seed 0, ``attn_impl="pallas"``, 8 prompts of 512
-tokens, context 1024), then profiles two windows, each after a warm-up:
-one ``transformer.prefill`` over the prompt batch (the engine's prefill
-call), and 16 decode steps as the engine takes them
+Builds chip_smoke.py's serving configuration for the arch (full width,
+random bf16 weights from seed 0, ``attn_impl`` and ``ssm_impl`` "pallas",
+8 prompts of 512 tokens, context 1024), then profiles two windows, each
+after a warm-up: one ``registry.prefill_caches`` over the prompt batch (the
+engine's prefill call), and 16 decode steps as the engine takes them
 (``registry.decode_step``, the greedy argmax and the copy of the tokens
 to the host).  For each window it prints the wall time, the summed device
 kernel time, the device's busy share, the kernel launches, and the
@@ -17,6 +18,7 @@ card and fails without one.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
 import json
@@ -25,9 +27,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry
 
 
 def _window(fn, device) -> dict:
@@ -55,13 +57,17 @@ def _window(fn, device) -> dict:
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
-ARCH, SEED = "qwen3-0.6b", 0
+SEED = 0
 REQUESTS, PROMPT_LEN, MAX_CONTEXT, DECODE_STEPS = 8, 512, 1024, 16
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ALL_ARCHS)
+    args = ap.parse_args()
     device = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config(ARCH), attn_impl="pallas")
+    cfg = dataclasses.replace(get_config(args.arch), attn_impl="pallas",
+                              ssm_impl="pallas")
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     params, _ = registry.init_params(gen, cfg)
@@ -72,7 +78,8 @@ def main() -> None:
     state = {}
 
     def prefill():
-        state["logits"], _ = transformer.prefill(params, cfg, tokens, caches)
+        state["logits"], _ = registry.prefill_caches(params, cfg, tokens,
+                                                     caches)
 
     def decode():
         tok = torch.argmax(state["logits"][:, -1, :cfg.vocab], dim=-1)[:, None]

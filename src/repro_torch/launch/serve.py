@@ -5,7 +5,8 @@
         [--partition-gb 10] [--device cuda]
 
 Runs on the card (``--device cuda``, the default) on an H100 MIG backend,
-with prefill attention on the hand-written flash kernel.  With
+with the prefill on the hand-written kernels: flash attention for the
+dense models, the SSD chunk scan for mamba2 (``--arch mamba2-2.7b``).  With
 ``--partition-gb`` the engine runs the time-series predictor against that
 slice size and performs the early restart (regrow to the profile the
 predictor asks for) when the converged peak estimate exceeds it.
@@ -88,7 +89,7 @@ def main() -> None:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", ssm_impl="pallas")
     print(f"[serve] {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
           f"family={cfg.family} on {device}")
     gen = torch.Generator(device=device)

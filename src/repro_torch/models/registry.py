@@ -1,10 +1,11 @@
-"""Unified model API over the families the port runs (dense, VLM).
+"""Unified model API over the families the port runs (dense, VLM, ssm).
 
 A "batch" is a dict:
     tokens   [B, S] int             (all families)
     labels   [B, S] int             (training; -1 = masked)
     patches  [B, vision_tokens, d]  (VLM stub frontend)
-Other families raise NotImplementedError until their slice is ported.
+Other families (moe, hybrid, audio) raise NotImplementedError until their
+slice is ported.
 """
 
 from __future__ import annotations
@@ -47,6 +48,15 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return transformer.forward(params, cfg, batch["tokens"],
                                extra_embeddings=batch.get("patches"),
                                last_only=True).logits
+
+
+def prefill_caches(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   caches: dict) -> tuple[torch.Tensor, dict]:
+    """The serving engine's prefill: one forward over the padded [B,S]
+    prompt batch that fills ``caches`` in place as a replay of the prompt
+    through :func:`decode_step` would, returning (last logits [B,1,V],
+    caches)."""
+    return transformer.prefill(params, cfg, tokens, caches)
 
 
 def make_dummy_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

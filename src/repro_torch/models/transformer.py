@@ -1,4 +1,5 @@
-"""Decoder-only transformer stack (dense family).
+"""Decoder-only stacks: the dense/VLM transformer and the Mamba2 (ssm)
+stack.
 
 Parameters carry a leading ``layers`` axis as in the reference; the port
 loops over it in Python, so each layer's window is a plain int (``None``
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_tokens, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm,
                                        unembed)
@@ -50,10 +52,10 @@ def _layer_masks(cfg: ModelConfig) -> list[tuple[int | None, int | None]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
+    if cfg.family not in ("dense", "vlm", "ssm") or cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense decoder only "
-            f"(family={cfg.family}, n_experts={cfg.n_experts})")
+            f"{cfg.name}: the port runs the dense decoder and the ssm stack "
+            f"only (family={cfg.family}, n_experts={cfg.n_experts})")
 
 
 def _layer(params: dict, i: int) -> dict:
@@ -75,10 +77,14 @@ def init_decoder(generator: torch.Generator | None, cfg: ModelConfig,
     init_embedding(b, cfg)
     lyr = b.sub("layers")
     L = cfg.n_layers
-    attn.init_attention(lyr, cfg, stacked=L)
-    init_rmsnorm_stacked(lyr, "norm1", cfg.d_model, L)
-    init_rmsnorm_stacked(lyr, "norm2", cfg.d_model, L)
-    init_mlp(lyr, cfg, stacked=L)
+    if cfg.family == "ssm":
+        ssm_lib.init_ssm(lyr, cfg, stacked=L)
+        init_rmsnorm_stacked(lyr, "norm1", cfg.d_model, L)
+    else:
+        attn.init_attention(lyr, cfg, stacked=L)
+        init_rmsnorm_stacked(lyr, "norm1", cfg.d_model, L)
+        init_rmsnorm_stacked(lyr, "norm2", cfg.d_model, L)
+        init_mlp(lyr, cfg, stacked=L)
     init_rmsnorm(b, "final_norm", cfg.d_model)
     return b.build()
 
@@ -111,12 +117,18 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check_supported(cfg)
     b_, s = tokens.shape
     x = _embed(params, cfg, tokens, extra_embeddings)
-    positions = torch.arange(s, device=x.device).expand(b_, s)
-    for i, (window, chunk) in enumerate(_layer_masks(cfg)):
-        lp = _layer(params, i)
-        x = x + attn.mha_full(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
-                              cfg, positions, window=window, chunk=chunk)
-        x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            lp = _layer(params, i)
+            x = x + ssm_lib.ssm_forward(
+                lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg)
+    else:
+        positions = torch.arange(s, device=x.device).expand(b_, s)
+        for i, (window, chunk) in enumerate(_layer_masks(cfg)):
+            lp = _layer(params, i)
+            x = x + attn.mha_full(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
+                                  cfg, positions, window=window, chunk=chunk)
+            x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
     if last_only:
         x = x[:, -1:]
     return DecoderOutput(logits=_head(params, cfg, x),
@@ -129,6 +141,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Prompt prefill: one forward over the padded [B,S] prompt batch that
     writes every layer's K/V into ``caches`` (in place, positions 0..S-1)
     and returns the last position's logits [B,1,V] with the caches.
+    For the ssm stack it writes each layer's conv window and SSD state
+    instead (:func:`repro_torch.models.ssm.ssm_prefill`), the SSD running
+    through the chunk-scan kernel when ``ssm_impl == 'pallas'``.
 
     This replaces the reference engine's prompt replay, which feeds the
     prompt one token at a time through ``decode_step``
@@ -143,6 +158,13 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, extra_embeddings)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            lp = _layer(params, i)
+            x = x + ssm_lib.ssm_prefill(
+                lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg,
+                caches["ssm"]["conv"][i], caches["ssm"]["state"][i])
+        return _head(params, cfg, x[:, -1:]), caches
     for i, (window, chunk) in enumerate(_layer_masks(cfg)):
         lp = _layer(params, i)
         x = x + attn.mha_prefill(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
@@ -157,6 +179,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def init_caches(cfg: ModelConfig, batch: int, context: int,
                 device: str | torch.device = "cpu") -> dict:
     _check_supported(cfg)
+    if cfg.family == "ssm":
+        return {"ssm": ssm_lib.init_ssm_cache(cfg, cfg.n_layers, batch,
+                                              device=device)}
     if cfg.kv_quant or cfg.windowed_cache:
         raise NotImplementedError(
             "the port has the default bf16 [L,B,C,KH,hd] cache only")
@@ -171,6 +196,17 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     with the caches updated in place."""
     _check_supported(cfg)
     x = embed_tokens(params, token, cfg)
+    if cfg.family == "ssm":
+        conv, state = caches["ssm"]["conv"], caches["ssm"]["state"]
+        for i in range(cfg.n_layers):
+            lp = _layer(params, i)
+            out, conv_i, state_i = ssm_lib.ssm_decode_step(
+                lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), conv[i],
+                state[i], cfg)
+            conv[i].copy_(conv_i)
+            state[i].copy_(state_i)
+            x = x + out
+        return _head(params, cfg, x), caches
     for i, (window, chunk) in enumerate(_layer_masks(cfg)):
         lp = _layer(params, i)
         out, _, _ = attn.mha_decode(

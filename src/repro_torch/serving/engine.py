@@ -8,7 +8,8 @@ prediction exceeds the partition the engine raises
 :class:`NeedsLargerPartition` (the early restart) and the launcher
 regrows the slice.  Same fields, accounting and restart trade as the
 reference engine (``repro.serving.engine``); prefill is one forward over
-the prompt batch (:func:`repro_torch.models.transformer.prefill`).
+the prompt batch that fills the caches
+(:func:`repro_torch.models.registry.prefill_caches`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from repro_torch.core.memory.timeseries import PeakMemoryPredictor
 from repro_torch.core.partition_state import PartitionBackend, PartitionProfile
 from repro_torch.core.restart import NeedsLargerPartition, early_restart_target
 from repro_torch.device import resolve_device
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry
 from repro_torch.models.module import tree_leaves
 
 GB = 1024 ** 3
@@ -101,7 +102,8 @@ class ServeEngine:
         for i, r in enumerate(requests):
             toks[i, :len(r.prompt)] = r.prompt
         tokens = torch.from_numpy(toks).to(self.device)
-        logits, caches = transformer.prefill(self.params, cfg, tokens, caches)
+        logits, caches = registry.prefill_caches(self.params, cfg, tokens,
+                                                 caches)
         self._note_iteration(caches, prompt_len)
 
         # decode

@@ -15,12 +15,14 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.ops import flash_mha
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.ops import flash_mha, ssd_mixer
+from repro_torch.kernels.ref import attention_ref, ssd_ref
 from repro_torch.models import registry, transformer
 from repro_torch.models.module import cast_tree
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # test_kernels.py:99,123
 
 
 @pytest.fixture
@@ -78,3 +80,66 @@ def test_prefill_on_kernel_matches_plain_path(card):
     # largest logit, as the CPU tests hold prefill to the reference
     err = (out["pallas"] - out["xla"]).abs().max() / out["xla"].abs().max()
     assert float(err) < 1e-4, float(err)
+
+
+def _ssd_inputs(card, dtype, b, s, h, p, n, seed):
+    """The reference tests' SSD inputs (tests/test_kernels.py:81-90), drawn
+    with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), dtype=np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32)))
+    a = -np.exp(rng.standard_normal(h, dtype=np.float32) * 0.2)
+    bc = [rng.standard_normal((b, s, n), dtype=np.float32) * 0.3
+          for _ in range(2)]
+    return (torch.from_numpy(x).to(card, dtype),
+            *(torch.from_numpy(t).to(card) for t in (dt, a, *bc)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 512, 4, 64, 128, 256), (1, 200, 3, 64, 128, 256),
+    (1, 512, 2, 64, 128, 64), (1, 100, 2, 64, 128, 256),
+    (2, 128, 1, 64, 128, 256), (1, 128, 2, 128, 16, 32),
+    (1, 96, 2, 16, 8, 32), (1, 256, 2, 32, 100, 128)])
+def test_ssd_kernel_matches_plain(card, dtype, b, s, h, p, n, chunk):
+    """y and the final state of the kernel against the sequential plain
+    version, on the same inputs (padded S, partial chunks, P and N of the
+    serving and smoke configs)."""
+    args = _ssd_inputs(card, dtype, b, s, h, p, n, s + h + p + n)
+    before = ssd.launches
+    y, state = ssd_mixer(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    y_ref, state_ref = ssd_ref(*args)
+    assert y.dtype == dtype and y.shape == (b, s, h, p)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL[dtype],
+                               rtol=SSD_TOL[dtype])
+    torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssm_prefill_on_kernel_matches_plain_path(card):
+    """mamba2's smoke config, f32 weights: the cache-filling prefill through
+    the SSD kernel (one launch per layer) against the plain chunked SSD."""
+    cfg = get_smoke_config("mamba2-2.7b")
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = cast_tree(registry.init_params(gen, cfg)[0], torch.float32)
+    tokens = registry.make_dummy_batch(cfg, 3, 100, seed=1,
+                                       device=card)["tokens"]
+    out, caches = {}, {}
+    with torch.inference_mode():
+        for impl in ("xla", "pallas"):
+            c = dataclasses.replace(cfg, ssm_impl=impl)
+            caches[impl] = registry.init_caches(c, 3, 128, card)
+            before = ssd.launches
+            out[impl], _ = registry.prefill_caches(params, c, tokens,
+                                                   caches[impl])
+            assert ssd.launches - before == (cfg.n_layers if impl == "pallas"
+                                             else 0)
+    err = (out["pallas"] - out["xla"]).abs().max() / out["xla"].abs().max()
+    assert float(err) < 1e-4, float(err)
+    for name in ("conv", "state"):
+        want = caches["xla"]["ssm"][name]
+        got = caches["pallas"]["ssm"][name]
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-4
