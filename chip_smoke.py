@@ -7,12 +7,16 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. card: name and power limit from nvidia-smi;
 2. build: every kernel source under src/repro_torch/kernels/csrc with nvcc
-   (flash_attention.cu and ssd_scan.cu, one nvcc each, started together);
+   (flash_attention.cu, flash_attention_sm90.cu and ssd_scan.cu, one nvcc
+   each, started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving paths' shapes and a few edge cases, with times;
+   the serving paths' shapes and a few edge cases, with times; the flash
+   cases go to both routes (bf16 at D 64/128 to the wgmma kernel "sm90",
+   f32 to the CUDA-core kernel "simt"), each case's launch counted on the
+   route it must take;
 4. serving: qwen3-0.6b at full width (random bf16 weights from a seed)
    through ServeEngine.run with the prefill on the flash kernel, counting
-   the kernels' launches in that run;
+   the kernels' launches in that run (28 on "sm90", none on "simt");
 5. early restart: the regrow loop of repro_torch.launch.serve on a slice
    smaller than the weights;
 4b. serving: mamba2-2.7b at full width through ServeEngine.run with the
@@ -20,12 +24,14 @@ Phases, each raising on failure (the script then exits non-zero):
    qwen3's weights are freed; then the f32 smoke config's greedy tokens on
    both SSD paths.
 
-It prints a JSON line of kernel results, the card line, and last
-``{"ok": true, "device": {...}}``.  Without a card it fails at once.
+Each phase prints its host seconds as it ends.  The script prints a JSON
+line of kernel results, the card line, and last ``{"ok": true, "device":
+{...}}``.  Without a card it fails at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -42,6 +48,7 @@ SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12           # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 # tolerances of the reference's own kernel tests (tests/test_kernels.py:37,52)
@@ -66,6 +73,20 @@ SSM_PREFILL_F32_REL_TOL = 1e-3
 # that differ only in the chunk already disagree by ~0.1 of the largest
 # logit.
 SSM_LAYER_REL_TOL = 5e-2
+
+
+class PhaseClock:
+    """Host seconds of each phase, printed as the phase ends."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        self.seconds[name] = time.perf_counter() - t0
+        print(f"[time] phase {name}: {self.seconds[name]:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -103,12 +124,44 @@ def attention_work(b, h, kh, s, d, itemsize, causal, window):
     return nbytes, 4 * d * pairs * b * h
 
 
-def phase_kernels(torch, fa, flash_mha, attention_ref) -> dict:
+def graph_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
+    """Mean device time of fn: n calls captured in a CUDA graph, replayed
+    reps times between CUDA events.  Used where one call's host side (the
+    wrapper's checks, tensor maps and launch) takes longer than its kernel,
+    so back-to-back eager calls would time the host."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (n * reps)
+
+
+def flash_route(torch, dtype, d) -> str:
+    """The kernel the wrapper must pick: the wgmma kernel for bf16 at head
+    dims 64 and 128, the CUDA-core kernel for everything else."""
+    return "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+
+
+def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     # (name, B, S, H, KH, D, dtype, causal, window); the first two are the
-    # serving prefill's shape (qwen3-0.6b: 16 heads, 8 KV heads, D=128)
+    # serving prefill's shape (qwen3-0.6b: 16 heads, 8 KV heads, D=128).
+    # bf16 cases at D 64/128 go to the wgmma kernel, the rest to the
+    # CUDA-core kernel.
     cases = [
         ("prefill-bf16", 8, 512, 16, 8, 128, torch.bfloat16, True, None),
         ("prefill-f32", 8, 512, 16, 8, 128, torch.float32, True, None),
@@ -116,13 +169,22 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> dict:
         ("window128", 8, 512, 16, 8, 128, torch.bfloat16, True, 128),
         ("non-causal-s200", 2, 200, 16, 8, 128, torch.float32, False, None),
         ("gqa-8to1", 8, 512, 16, 2, 128, torch.bfloat16, True, None),
+        ("mha-d64-s1024", 2, 1024, 8, 8, 64, torch.bfloat16, True, None),
+        ("non-causal-s200-bf16", 2, 200, 16, 8, 128, torch.bfloat16, False,
+         None),
     ]
-    errors = {}
+    errors, routes = {}, {}
     for name, b, s, h, kh, d, dtype, causal, window in cases:
         q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda")
                    .to(dtype) for n in (h, kh, kh))
+        before = dict(fa.launches_by_route)
         out = flash_mha(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        route = routes[name] = flash_route(torch, dtype, d)
+        moved = {r: fa.launches_by_route[r] - before[r] for r in before}
+        if moved != {r: int(r == route) for r in fa.ROUTES}:
+            raise AssertionError(f"flash_attention {name}: launches by "
+                                 f"route {moved}, want one on {route}")
         ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window
                             ).transpose(1, 2)
@@ -130,39 +192,75 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> dict:
         tol = TOL[str(dtype).split(".")[1]]
         bad = err > tol + tol * ref.float().abs()
         errors[name] = float(err.max())
-        print(f"[kernels] flash_attention {name}: max_abs_err "
+        print(f"[kernels] flash_attention {name} ({route}): max_abs_err "
               f"{errors[name]:.3e} (tol {tol})", flush=True)
         if bool(bad.any()) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"flash_attention {name}: kernel disagrees "
                                  f"with attention_ref (max err "
                                  f"{errors[name]})")
 
-    # times at the serving prefill's shape, in the kernel layout
+    # Device times at the serving prefill's shape, all in this call: the
+    # wgmma kernel on model-layout views (as the prefill hands them over),
+    # the CUDA-core kernel in f32 (its route) and in bf16 (the kernel the
+    # bf16 prefill ran before the wgmma kernel, timed as a yardstick), the
+    # plain versions, and scaled_dot_product_attention (not used by the
+    # port).
     b, s, h, kh, d = 8, 512, 16, 8, 128
-    q, k, v = (torch.randn((b, n, s, d), generator=gen, device="cuda")
-               .to(torch.bfloat16) for n in (h, kh, kh))
-    kernel_ms = timed_ms(torch, lambda: fa.flash_attention(q, k, v))
-    plain_ms = timed_ms(torch, lambda: attention_ref(q, k, v))
-    library_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    nbytes, flops = attention_work(b, h, kh, s, d, 2, True, None)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    print(f"[kernels] flash_attention B={b} S={s} H={h} KH={kh} D={d} bf16 "
-          f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-          f"({nbytes} B, {flops} FLOP)", flush=True)
-    return {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:25",
-        "max_abs_err": errors["prefill-bf16"],
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-        "case_max_abs_err": errors,
+    qm, km, vm = (torch.randn((b, s, n, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for n in (h, kh, kh))
+    q, k, v = (x.transpose(1, 2) for x in (qm, km, vm))
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    q32, k32, v32 = (x.float() for x in (qc, kc, vc))
+    ms = {
+        "sm90": graph_ms(torch, lambda: fa.flash_attention(q, k, v)),
+        "simt_f32": graph_ms(torch, lambda: fa.flash_attention(q32, k32,
+                                                               v32)),
+        "simt_bf16": graph_ms(torch, lambda: fa._launch(
+            "simt", qc, kc, vc, causal=True, window=None, kv_len=s)),
+        "plain_bf16": graph_ms(torch, lambda: attention_ref(qc, kc, vc)),
+        "plain_f32": graph_ms(torch, lambda: attention_ref(q32, k32, v32)),
+        "sdpa_bf16": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True)),
+        "sdpa_f32": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q32, k32, v32, is_causal=True, enable_gqa=True)),
+        "sm90_again": graph_ms(torch, lambda: fa.flash_attention(q, k, v)),
     }
+    entries = []
+    for route, dtype, peak in (("sm90", "bfloat16", PEAK_BF16_FLOPS),
+                               ("simt", "float32", PEAK_F32_FLOPS)):
+        itemsize = 2 if dtype == "bfloat16" else 4
+        nbytes, flops = attention_work(b, h, kh, s, d, itemsize, True, None)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        tag = "bf16" if dtype == "bfloat16" else "f32"
+        kernel_ms = ms["sm90" if route == "sm90" else "simt_f32"]
+        print(f"[kernels] flash_attention ({route}) B={b} S={s} H={h} "
+              f"KH={kh} D={d} {tag} causal: kernel {kernel_ms:.4f} ms, "
+              f"plain {ms['plain_' + tag]:.4f} ms, sdpa "
+              f"{ms['sdpa_' + tag]:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP)",
+              flush=True)
+        entries.append({
+            "name": "flash_attention", "route": "cuda", "kernel_route": route,
+            "dtype": dtype,
+            "source": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+                       if route == "sm90" else
+                       "src/repro_torch/kernels/csrc/flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention.py:25",
+            "max_abs_err": errors["prefill-" + tag],
+            "ms": kernel_ms, "plain_ms": ms["plain_" + tag],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": ms["sdpa_" + tag],
+            "case_max_abs_err": {n: e for n, e in errors.items()
+                                 if routes[n] == route},
+        })
+    entries[0]["ms_repeat"] = ms["sm90_again"]
+    entries[0]["simt_bf16_ms"] = ms["simt_bf16"]
+    print(f"[kernels] flash_attention bf16 at the serving shape: sm90 "
+          f"{ms['sm90']:.4f} / {ms['sm90_again']:.4f} ms against the simt "
+          f"kernel's {ms['simt_bf16']:.4f} ms on the same inputs", flush=True)
+    return entries
 
 
 def ssd_work(b, s, h, p, n, chunk, itemsize):
@@ -342,12 +440,13 @@ def check_ssm_prefill(torch, cfg, params, tokens) -> dict:
 
 
 def phase_serving(torch, counters, cfg, params, check_prefill,
-                  want_launches) -> dict:
+                  want_launches, want_flash_routes) -> dict:
     """Full-width serving through ServeEngine.run: ``check_prefill`` holds
     the prefill's last logits on the kernel path against the plain path,
     then the run goes with every kernel's launch count set to 0 just
     before it and read just after; ``want_launches`` maps each kernel
-    module's name to the launches the run must make."""
+    module's name to the launches the run must make, and
+    ``want_flash_routes`` the flash launches by route."""
     from repro_torch.core.mig_h100 import MigH100Backend
     from repro_torch.models import registry
     from repro_torch.serving.engine import EngineConfig, ServeEngine
@@ -367,17 +466,23 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
                          backend=MigH100Backend(), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    fa = counters["flash_attention"]
     for mod in counters.values():
         mod.launches = 0
+    fa.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
     t0 = time.perf_counter()
     out = engine.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
+    flash_routes = dict(fa.launches_by_route)
     print(f"[serving] {cfg.name} kernel launches in ServeEngine.run: "
-          f"{launches} (layers {cfg.n_layers})", flush=True)
-    if launches != want_launches:
-        raise AssertionError(f"launches {launches}, want {want_launches}")
+          f"{launches}, flash by route {flash_routes} (layers "
+          f"{cfg.n_layers})", flush=True)
+    if launches != want_launches or flash_routes != want_flash_routes:
+        raise AssertionError(f"launches {launches}, flash by route "
+                             f"{flash_routes}; want {want_launches}, "
+                             f"{want_flash_routes}")
     n_tok = sum(len(r.generated) for r in out)
     if n_tok != N_REQ * MAX_NEW or not all(
             0 <= t < cfg.vocab for r in out for t in r.generated):
@@ -392,7 +497,8 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
         "tokens_per_s": n_tok / run_s,
         "accountant_peak_in_use_gb": engine.accountant.peak_in_use / 2**30,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches, **checks,
+        "launches": launches, "flash_launches_by_route": flash_routes,
+        **checks,
     }
     print(f"[serving] {json.dumps(stats)}", flush=True)
     print(f"[serving] req 0: {out[0].generated[:16]}", flush=True)
@@ -476,53 +582,66 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    clock = PhaseClock()
+
     # 1. card
-    card = card_line()
-    print(f"[card] {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}", flush=True)
+    with clock("1 card"):
+        card = card_line()
+        print(f"[card] {card}; torch {torch.__version__} cuda "
+              f"{torch.version.cuda}", flush=True)
 
     # 2. build every kernel source, all nvcc processes at once
-    t0 = time.perf_counter()
-    built = build.build()
-    print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for res in built.values():
-        for line in res.log.splitlines():
-            if "registers" in line:
-                print(f"[build] {res.name}: {line.strip()}", flush=True)
+    with clock("2 build"):
+        built = build.build()
+        print(f"[build] {sorted(built)}", flush=True)
+        for res in built.values():
+            for line in res.log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {res.name}: {line.strip()}", flush=True)
 
     # 3. each kernel against its plain version
-    flash = phase_kernels(torch, fa, flash_mha, attention_ref)
-    scan = phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked)
+    with clock("3 kernels"):
+        flash = phase_kernels(torch, fa, flash_mha, attention_ref)
+        scan = phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked)
     counters = {"flash_attention": fa, "ssd_scan": ssd}
 
     # 4. full-width qwen3 serving on the flash prefill
-    phase_smoke_tokens(torch, ARCH, "attn_impl")
-    cfg = dataclasses.replace(get_config(ARCH), attn_impl="pallas")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    params, _ = registry.init_params(gen, cfg)
-    serving = phase_serving(torch, counters, cfg, params, check_attn_prefill,
-                            {"flash_attention": cfg.n_layers, "ssd_scan": 0})
-    flash["launches"] = serving["launches"]["flash_attention"]
+    with clock("4 qwen3 serving"):
+        phase_smoke_tokens(torch, ARCH, "attn_impl")
+        cfg = dataclasses.replace(get_config(ARCH), attn_impl="pallas")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        params, _ = registry.init_params(gen, cfg)
+        serving = phase_serving(
+            torch, counters, cfg, params, check_attn_prefill,
+            {"flash_attention": cfg.n_layers, "ssd_scan": 0},
+            {"sm90": cfg.n_layers, "simt": 0})
+        for entry in flash:
+            entry["launches"] = serving["flash_launches_by_route"][
+                entry["kernel_route"]]
 
     # 5. early restart and regrow (serve prints each restart line)
-    phase_restart(cfg, params)
+    with clock("5 restart"):
+        phase_restart(cfg, params)
 
     # 4b. full-width mamba2 serving on the SSD prefill, on its own memory
-    del params
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_impl="pallas")
-    gen.manual_seed(SEED)
-    params, _ = registry.init_params(gen, cfg)
-    serving = phase_serving(torch, counters, cfg, params, check_ssm_prefill,
-                            {"flash_attention": 0, "ssd_scan": cfg.n_layers})
-    scan["launches"] = serving["launches"]["ssd_scan"]
-    del params
-    torch.cuda.empty_cache()
-    phase_smoke_tokens(torch, SSM_ARCH, "ssm_impl")
+    with clock("4b mamba2 serving"):
+        del params
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_impl="pallas")
+        gen.manual_seed(SEED)
+        params, _ = registry.init_params(gen, cfg)
+        serving = phase_serving(
+            torch, counters, cfg, params, check_ssm_prefill,
+            {"flash_attention": 0, "ssd_scan": cfg.n_layers},
+            {"sm90": 0, "simt": 0})
+        scan["launches"] = serving["launches"]["ssd_scan"]
+        del params
+        torch.cuda.empty_cache()
+        phase_smoke_tokens(torch, SSM_ARCH, "ssm_impl")
 
-    print(json.dumps({"kernels": [flash, scan]}), flush=True)
+    print(f"[time] {json.dumps(clock.seconds)}", flush=True)
+    print(json.dumps({"kernels": [*flash, scan]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,22 @@
-"""Wrapper of the hand-written Hopper flash-attention kernel.
+"""Wrapper of the hand-written Hopper flash-attention kernels.
 
 ``flash_attention`` takes the kernel layout (q [B,H,Sq,D], k/v [B,KH,Sk,D])
 and computes causal / sliding-window / GQA softmax attention in f32, with
 the output in q's dtype.  A tensor on the CPU goes to the plain version
-(:func:`repro_torch.kernels.ref.attention_ref`); a CUDA tensor goes to the
-kernel in ``csrc/flash_attention.cu``, or the call raises.
+(:func:`repro_torch.kernels.ref.attention_ref`).  A CUDA tensor goes to one
+of two kernels, by :func:`route`, a function of dtype and head dim alone
+decided before the launch:
+
+- ``"sm90"``: bf16 at D in ``SM90_HEAD_DIMS`` (64, 128) goes to
+  ``csrc/flash_attention_sm90.cu`` (bf16 ``wgmma`` fed by TMA).  It takes
+  q/k/v views with D contiguous and the other strides multiples of 16
+  bytes, and returns a [B,H,Sq,D] view of a [B,Sq,H,D] buffer;
+- ``"simt"``: every other pair (f32 at D 32/64/128/256, bf16 at 32 and
+  256) goes to ``csrc/flash_attention.cu`` (CUDA-core f32 products, as f32
+  parity at 2e-5 needs).  It takes contiguous q/k/v.
+
+A failed build or launch on either route raises; no call is retried on
+the other kernel.
 """
 
 from __future__ import annotations
@@ -22,22 +34,61 @@ from repro_torch.kernels.ref import attention_ref
 BLOCK = 64
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+#: head dims the bf16 wgmma kernel takes
+SM90_HEAD_DIMS = (64, 128)
+ROUTES = ("sm90", "simt")
 
-#: kernel launches in this process; only CUDA calls count
+#: kernel launches in this process, in all and by route; only CUDA calls
+#: count
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of this dtype and head dim goes to."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
 
 
 @functools.cache
-def _entry():
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
+def _entry(route_name: str):
+    if route_name == "sm90":
+        lib = build.load("flash_attention_sm90")
+        fn = lib.flash_attention_sm90_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        err = lib.flash_attention_sm90_error_string
+    else:
+        lib = build.load("flash_attention")
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        err = lib.flash_attention_error_string
     fn.restype = ctypes.c_int
-    err = lib.flash_attention_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
+
+
+def tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides (batch, head, position) of a [B,N,S,D] view for the
+    sm90 kernel's tensor maps; raises unless D is contiguous and every
+    stride that is walked, and the base address, are multiples of 16
+    bytes.  A dimension of size 1 is never walked, so its stride is
+    reported as the position stride times S."""
+    if x.stride(3) != 1:
+        raise ValueError(f"the sm90 route needs D contiguous; strides "
+                         f"{tuple(x.stride())}")
+    unit = 16 // x.element_size()
+    strides = tuple(x.stride(i) if x.shape[i] > 1
+                    else x.stride(2) * x.shape[2] for i in range(3))
+    if any(st % unit for st in strides) or x.data_ptr() % 16:
+        raise ValueError(f"the sm90 route needs strides and base address "
+                         f"in multiples of 16 bytes; strides "
+                         f"{tuple(x.stride())}")
+    return strides
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,9 +122,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: int | None = None) -> torch.Tensor:
     """q: [B,H,Sq,D]; k/v: [B,KH,Sk,D] -> [B,H,Sq,D] in q's dtype.
 
-    Keys at positions >= ``kv_len`` (default Sk) are hidden.
+    Keys at positions >= ``kv_len`` (default Sk) are hidden.  On the sm90
+    route the result is a view of a [B,Sq,H,D] buffer.
     """
-    global launches
     kv_len = k.shape[2] if kv_len is None else kv_len
     _check(q, k, v, window, kv_len)
     if q.device.type == "cpu":
@@ -81,19 +132,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous")
-    fn, err = _entry()
+    return _launch(route(q.dtype, q.shape[3]), q, k, v, causal=causal,
+                   window=window, kv_len=kv_len)
+
+
+def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, *, causal: bool, window: int | None,
+            kv_len: int) -> torch.Tensor:
+    """Launch the named route's kernel on checked CUDA tensors."""
+    global launches
+    fn, err = _entry(route_name)
     b, h, sq, d = q.shape
     kh, sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, h, kh, sq, sk, d, kv_len, int(causal), window or 0,
-                int(q.dtype == torch.bfloat16), stream)
+    if route_name == "sm90":
+        strides = [st for x in (q, k, v) for st in tma_strides(x)]
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        with torch.cuda.device(q.device):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, h, kh, sq, sk, d, *strides, kv_len, int(causal),
+                    window or 0, stream)
+        out = out.transpose(1, 2)
+    else:
+        if not (q.is_contiguous() and k.is_contiguous()
+                and v.is_contiguous()):
+            raise ValueError("the simt route needs q, k and v contiguous")
+        out = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, h, kh, sq, sk, d, kv_len, int(causal), window or 0,
+                    int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: "
-                           f"{err(rc).decode()} (cudaError {rc})")
+        raise RuntimeError(f"flash_attention ({route_name}) launch failed: "
+                           f"{err(rc).decode()} (code {rc})")
     launches += 1
+    launches_by_route[route_name] += 1
     return out

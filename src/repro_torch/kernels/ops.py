@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import BLOCK, flash_attention
+from repro_torch.kernels.flash_attention import BLOCK, flash_attention, route
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 
@@ -21,15 +21,20 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: [B,S,H,hd]; k/v: [B,S,KH,hd] -> [B,S,H,hd].  S is zero-padded up to
     a multiple of the kernel block; the kernel hides the padded keys
     (``kv_len=S``) whether or not the call is causal, and the padded query
-    rows are cut off.
+    rows are cut off.  The sm90 route reads the [B,S,H,hd] tensors through
+    transposed views and writes its output in [B,S,H,hd], so it copies
+    nothing when S is a block multiple; the simt route takes contiguous
+    [B,H,S,hd] copies.
     """
     s = q.shape[1]
     pad = (-s) % BLOCK
+    strided = route(q.dtype, q.shape[-1]) == "sm90"
 
     def to_kernel(x: torch.Tensor) -> torch.Tensor:
         if pad:
             x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        return x.transpose(1, 2).contiguous()
+        x = x.transpose(1, 2)
+        return x if strided else x.contiguous()
 
     out = flash_attention(to_kernel(q), to_kernel(k), to_kernel(v),
                           causal=causal, window=window, kv_len=s)

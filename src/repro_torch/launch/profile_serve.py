@@ -12,8 +12,9 @@ engine's prefill call), and 16 decode steps as the engine takes them
 (``registry.decode_step``, the greedy argmax and the copy of the tokens
 to the host).  For each window it prints the wall time, the summed device
 kernel time, the device's busy share, the kernel launches, and the
-kernels that take the most device time, then one JSON line.  It needs a
-card and fails without one.
+kernels that take the most device time, and how many launches were flash
+and copy kernels, then one JSON line.  It needs a card and fails without
+one.
 """
 
 from __future__ import annotations
@@ -48,15 +49,23 @@ def _window(fn, device) -> dict:
     if not kernels:
         raise RuntimeError("the profiler recorded no device events")
     by_name: dict[str, float] = collections.defaultdict(float)
+    named = dict.fromkeys(COUNTED, 0)
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        for word in COUNTED:
+            named[word] += word in e.name
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "launches": len(kernels),
+            "launches_named": named,
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
+#: kernel launches counted by a word of their name: the flash kernels
+#: (flash_fwd_kernel, flash_fwd_sm90_kernel) and PyTorch's copy kernels
+#: (direct_copy_kernel_cuda and the like, which layout changes launch)
+COUNTED = ("flash", "copy")
 SEED = 0
 REQUESTS, PROMPT_LEN, MAX_CONTEXT, DECODE_STEPS = 8, 512, 1024, 16
 
@@ -103,7 +112,8 @@ def main() -> None:
         w = out[name]
         print(f"[profile] {name}: wall {w['wall_ms']:.2f} ms, device busy "
               f"{w['device_busy_ms']:.2f} ms ({100 * w['busy_share']:.1f}%),"
-              f" {w['launches']} kernel launches")
+              f" {w['launches']} kernel launches, by name "
+              f"{w['launches_named']}")
         for kname, ms in w["top_kernels_ms"]:
             print(f"[profile]   {ms:9.3f} ms  {kname}")
     print(json.dumps(out))

@@ -37,6 +37,14 @@ def _bhsd(x):
     return x.transpose(1, 2)
 
 
+def _route_counts():
+    return dict(fa.launches_by_route)
+
+
+def _moved(before):
+    return {r: fa.launches_by_route[r] - before[r] for r in before}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kh,d,causal,window", [
@@ -48,14 +56,48 @@ def test_kernel_matches_plain(card, dtype, b, s, h, kh, d, causal, window):
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d),
                                                     dtype=np.float32))
                .to(card, dtype) for n in (h, kh, kh))
-    before = fa.launches
+    before, by_route = fa.launches, _route_counts()
     out = flash_mha(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    # f32 at any D, and bf16 at D 32 and 256, go to the CUDA-core kernel
+    sm90 = dtype == torch.bfloat16 and d in (64, 128)
+    assert _moved(by_route) == {"sm90": int(sm90), "simt": int(not sm90)}
     ref = _bhsd(attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
                               window=window))
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+# (b, s, h, kh, d, causal, window): the bf16 wgmma kernel's cases, D 64 and
+# 128, GQA groups of 1, 2 and 8, causal, windows of 64 and 128, non-causal
+# ragged (the pad hidden by kv_len), S of 64, 200 (padded), 512 and 1024
+SM90_CASES = [
+    (2, 512, 16, 8, 128, True, None), (1, 64, 2, 2, 64, True, None),
+    (1, 200, 8, 1, 128, True, None), (2, 512, 4, 4, 64, True, 64),
+    (1, 1024, 8, 1, 64, True, 128), (2, 200, 4, 2, 128, False, None),
+    (1, 200, 2, 2, 64, False, None), (1, 1024, 16, 2, 128, True, None),
+    (1, 512, 8, 8, 128, True, 128), (2, 64, 16, 2, 64, False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window", SM90_CASES)
+def test_sm90_kernel_matches_plain(card, b, s, h, kh, d, causal, window):
+    """The bf16 wgmma kernel against the plain version, on model-layout
+    inputs that reach it as transposed views (no copies)."""
+    rng = np.random.default_rng(3 * s + h + d + kh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d),
+                                                    dtype=np.float32))
+               .to(card, torch.bfloat16) for n in (h, kh, kh))
+    before = _route_counts()
+    out = flash_mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"sm90": 1, "simt": 0}
+    assert out.shape == (b, s, h, d) and out.dtype == torch.bfloat16
+    ref = _bhsd(attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
+                              window=window))
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -80,6 +122,32 @@ def test_prefill_on_kernel_matches_plain_path(card):
     # largest logit, as the CPU tests hold prefill to the reference
     err = (out["pallas"] - out["xla"]).abs().max() / out["xla"].abs().max()
     assert float(err) < 1e-4, float(err)
+
+
+@pytest.mark.cuda
+def test_bf16_prefill_on_sm90_kernel_matches_plain_path(card):
+    """Smoke config, bf16 weights (head dim 64, two query heads a KV head):
+    the prefill makes one sm90 launch a layer and its last logits stay
+    within 5e-2 of the plain path's, relative to the largest logit, as
+    chip_smoke.py holds qwen3-0.6b at full width."""
+    cfg = get_smoke_config("qwen3-0.6b")
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = registry.init_params(gen, cfg)[0]
+    tokens = registry.make_dummy_batch(cfg, 3, 128, seed=1,
+                                       device=card)["tokens"]
+    out = {}
+    with torch.inference_mode():
+        for impl in ("xla", "pallas"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            caches = registry.init_caches(c, 3, 256, card)
+            before = _route_counts()
+            out[impl], _ = transformer.prefill(params, c, tokens, caches)
+            want = cfg.n_layers if impl == "pallas" else 0
+            assert _moved(before) == {"sm90": want, "simt": 0}
+    assert bool(torch.isfinite(out["pallas"]).all())
+    err = ((out["pallas"].float() - out["xla"].float()).abs().max()
+           / out["xla"].float().abs().max())
+    assert float(err) < 5e-2, float(err)
 
 
 def _ssd_inputs(card, dtype, b, s, h, p, n, seed):
