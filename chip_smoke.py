@@ -7,22 +7,25 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. card: name and power limit from nvidia-smi;
 2. build: every kernel source under src/repro_torch/kernels/csrc with nvcc
-   (flash_attention.cu, flash_attention_sm90.cu and ssd_scan.cu, one nvcc
-   each, started together);
+   (flash_attention.cu, flash_attention_sm90.cu, ssd_scan.cu and
+   ssd_scan_sm90.cu, one nvcc each, started together), printing nvcc's
+   and ptxas's whole output;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving paths' shapes and a few edge cases, with times; the flash
    cases go to both routes (bf16 at D 64/128 to the wgmma kernel "sm90",
-   f32 to the CUDA-core kernel "simt"), each case's launch counted on the
-   route it must take;
+   f32 to the CUDA-core kernel "simt"), and so do the SSD cases (bf16 at
+   P=64, N=128 and a chunk that is a multiple of 64 to the wgmma kernel
+   "sm90", the rest to the CUDA-core kernel "simt"), each case's launch
+   counted on the route it must take;
 4. serving: qwen3-0.6b at full width (random bf16 weights from a seed)
    through ServeEngine.run with the prefill on the flash kernel, counting
    the kernels' launches in that run (28 on "sm90", none on "simt");
 5. early restart: the regrow loop of repro_torch.launch.serve on a slice
    smaller than the weights;
 4b. serving: mamba2-2.7b at full width through ServeEngine.run with the
-   prefill's SSD on the chunk-scan kernel, counting the launches, after
-   qwen3's weights are freed; then the f32 smoke config's greedy tokens on
-   both SSD paths.
+   prefill's SSD on the chunk-scan kernel, counting the launches (64 on
+   "sm90", none on "simt"), after qwen3's weights are freed; then the f32
+   smoke config's greedy tokens on both SSD paths.
 
 Each phase prints its host seconds as it ends.  The script prints a JSON
 line of kernel results, the card line, and last ``{"ok": true, "device":
@@ -282,7 +285,21 @@ def ssd_work(b, s, h, p, n, chunk, itemsize):
     return nbytes, flops
 
 
-def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked) -> dict:
+def ssd_errors(y, state, y_ref, state_ref, tol):
+    """Max abs errors of y and the state, and whether either leaves its
+    tolerance (atol = rtol) or is not finite."""
+    err_y = (y.float() - y_ref.float()).abs()
+    err_s = (state - state_ref).abs()
+    bad = (bool((err_y > tol + tol * y_ref.float().abs()).any())
+           or bool((err_s > SSD_STATE_TOL
+                    + SSD_STATE_TOL * state_ref.abs()).any())
+           or not bool(y.isfinite().all())
+           or not bool(state.isfinite().all()))
+    return float(err_y.max()), float(err_s.max()), bad
+
+
+def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
+                     ) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
 
@@ -295,45 +312,67 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked) -> dict:
         a = -torch.exp(rnd(h) * 0.2)
         return x, dt, a, rnd(b, s, n) * 0.3, rnd(b, s, n) * 0.3
 
-    # (name, B, S, H, P, N, chunk, dtype); the first two are the serving
-    # prefill's shape (mamba2-2.7b: 80 heads of P=64, N=128, chunk 256)
+    # (name, B, S, H, P, N, chunk, dtype, the route the call must take);
+    # the first two are the serving prefill's shape (mamba2-2.7b: 80 heads
+    # of P=64, N=128, chunk 256).
     cases = [
-        ("prefill-bf16", 8, 512, 80, 64, 128, 256, torch.bfloat16),
-        ("prefill-f32", 8, 512, 80, 64, 128, 256, torch.float32),
-        ("ragged-s200", 8, 200, 80, 64, 128, 256, torch.float32),
-        ("chunk64-s512", 8, 512, 80, 64, 128, 64, torch.bfloat16),
-        ("one-partial-chunk-s100", 8, 100, 80, 64, 128, 256, torch.float32),
-        ("h1", 8, 512, 1, 64, 128, 256, torch.bfloat16),
+        ("prefill-bf16", 8, 512, 80, 64, 128, 256, torch.bfloat16, "sm90"),
+        ("prefill-f32", 8, 512, 80, 64, 128, 256, torch.float32, "simt"),
+        ("ragged-s200", 8, 200, 80, 64, 128, 256, torch.float32, "simt"),
+        ("chunk64-s512", 8, 512, 80, 64, 128, 64, torch.bfloat16, "sm90"),
+        ("one-partial-chunk-s100", 8, 100, 80, 64, 128, 256, torch.float32,
+         "simt"),
+        ("h1", 8, 512, 1, 64, 128, 256, torch.bfloat16, "sm90"),
+        ("ragged-s200-bf16", 8, 200, 80, 64, 128, 256, torch.bfloat16,
+         "sm90"),
+        ("bf16-p128-n16-chunk32", 8, 512, 8, 128, 16, 32, torch.bfloat16,
+         "simt"),
     ]
-    errors = {}
-    for name, b, s, h, p, n, chunk, dtype in cases:
+    errors, routes = {}, {}
+    for name, b, s, h, p, n, chunk, dtype, route in cases:
         args = inputs(b, s, h, p, n, dtype)
+        before = dict(ssd.launches_by_route)
         y, state = ssd_mixer(*args, chunk=chunk)
         torch.cuda.synchronize()
+        routes[name] = route
+        moved = {r: ssd.launches_by_route[r] - before[r] for r in before}
+        if moved != {r: int(r == route) for r in ssd.ROUTES}:
+            raise AssertionError(f"ssd_scan {name}: launches by route "
+                                 f"{moved}, want one on {route}")
         y_ref, state_ref = ssd_ref(*args)
         tol = SSD_TOL[str(dtype).split(".")[1]]
-        err_y = (y.float() - y_ref.float()).abs()
-        err_s = (state - state_ref).abs()
-        errors[name] = float(err_y.max())
-        print(f"[kernels] ssd_scan {name}: y max_abs_err {errors[name]:.3e} "
-              f"(tol {tol}), state max_abs_err {float(err_s.max()):.3e} "
-              f"(tol {SSD_STATE_TOL})", flush=True)
-        bad = (bool((err_y > tol + tol * y_ref.float().abs()).any())
-               or bool((err_s > SSD_STATE_TOL
-                        + SSD_STATE_TOL * state_ref.abs()).any())
-               or not bool(torch.isfinite(y).all())
-               or not bool(torch.isfinite(state).all()))
+        errors[name], err_s, bad = ssd_errors(y, state, y_ref, state_ref,
+                                              tol)
+        print(f"[kernels] ssd_scan {name} ({route}): y max_abs_err "
+              f"{errors[name]:.3e} (tol {tol}), state max_abs_err "
+              f"{err_s:.3e} (tol {SSD_STATE_TOL})", flush=True)
         if bad:
             raise AssertionError(f"ssd_scan {name}: kernel disagrees with "
                                  f"ssd_ref (y err {errors[name]}, state err "
-                                 f"{float(err_s.max())})")
+                                 f"{err_s})")
 
-    # times at the serving prefill's shape; the plain version is a 512-step
-    # loop, so it is timed over fewer calls.  The plain chunked SSD (the
-    # model's ssm_impl="xla" path) is timed beside it.
+    # Both kernels at the serving prefill's shape on the same bf16 inputs:
+    # each held to ssd_ref there, then timed twice, in turns (sm90, simt,
+    # simt, sm90), by CUDA-graph replay.  The plain version is a 512-step
+    # loop, so it is timed over fewer eager calls; the plain chunked SSD
+    # (the model's ssm_impl="xla" path) is timed beside it.
     b, s, h, p, n, chunk = 8, 512, 80, 64, 128, 256
     args = inputs(b, s, h, p, n, torch.bfloat16)
-    kernel_ms = timed_ms(torch, lambda: ssd.ssd_scan(*args, chunk=chunk))
+    y_ref, state_ref = ssd_ref(*args)
+    serving_err = {}
+    for route in ssd.ROUTES:
+        y, state = ssd._launch(route, *args, chunk)
+        torch.cuda.synchronize()
+        serving_err[route], err_s, bad = ssd_errors(
+            y, state, y_ref, state_ref, SSD_TOL["bfloat16"])
+        if bad:
+            raise AssertionError(f"ssd_scan ({route}) at the serving shape: "
+                                 f"y err {serving_err[route]}, state err "
+                                 f"{err_s}")
+    ms = {}
+    for key in ("sm90", "simt", "simt_again", "sm90_again"):
+        route = key.split("_")[0]
+        ms[key] = graph_ms(torch, lambda: ssd._launch(route, *args, chunk))
     plain_ms = timed_ms(torch, lambda: ssd_ref(*args), n=3, warmup=1)
     chunked_ms = timed_ms(torch, lambda: ssd_chunked(*args, chunk), n=5,
                           warmup=1)
@@ -341,21 +380,29 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     print(f"[kernels] ssd_scan B={b} S={s} H={h} P={p} N={n} Q={chunk} x "
-          f"bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"plain chunked {chunked_ms:.4f} ms, bound "
+          f"bf16: sm90 {ms['sm90']:.4f} / {ms['sm90_again']:.4f} ms, simt "
+          f"{ms['simt']:.4f} / {ms['simt_again']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms, bound "
           f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP); no "
           f"single PyTorch call computes it", flush=True)
-    return {
-        "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:29",
-        "max_abs_err": errors["prefill-bf16"],
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "plain_chunked_ms": chunked_ms,
-        "case_max_abs_err": errors,
-    }
+    entries = []
+    for route, source in (("sm90", "ssd_scan_sm90.cu"),
+                          ("simt", "ssd_scan.cu")):
+        entries.append({
+            "name": "ssd_scan", "route": "cuda", "kernel_route": route,
+            "dtype": "bfloat16",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/ssd_scan.py:29",
+            "max_abs_err": serving_err[route],
+            "ms": ms[route], "ms_repeat": ms[route + "_again"],
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "plain_chunked_ms": chunked_ms,
+            "case_max_abs_err": {k: e for k, e in errors.items()
+                                 if routes[k] == route},
+        })
+    return entries
 
 
 N_REQ, PROMPT_LEN, MAX_NEW, CONTEXT = 8, 512, 64, 1024
@@ -398,13 +445,35 @@ def check_attn_prefill(torch, cfg, params, tokens) -> dict:
     return {"prefill_kernel_vs_plain_rel_err": rel}
 
 
+class RouteCount:
+    """Launches of a kernel module by route inside a ``with`` block, held
+    to ``want`` on leaving it."""
+
+    def __init__(self, mod, want: dict, what: str):
+        self.mod, self.want, self.what = mod, want, what
+
+    def __enter__(self):
+        self.before = dict(self.mod.launches_by_route)
+
+    def __exit__(self, *exc):
+        moved = {r: self.mod.launches_by_route[r] - self.before[r]
+                 for r in self.before}
+        if exc[0] is None and moved != self.want:
+            raise AssertionError(f"{self.what}: launches by route {moved}, "
+                                 f"want {self.want}")
+
+
 def check_ssm_prefill(torch, cfg, params, tokens) -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import ssm
     from repro_torch.models.layers import embed_tokens, rmsnorm
     from repro_torch.models.module import cast_tree
     p32 = cast_tree(params, torch.float32)
-    rel32 = rel_err(prefill_logits(torch, cfg, p32, tokens,
-                                   ssm_impl="pallas"),
+    # f32 x goes to the CUDA-core kernel, bf16 x to the wgmma kernel
+    with RouteCount(ssd, {"sm90": 0, "simt": cfg.n_layers},
+                    "f32 prefill on the SSD kernel"):
+        logits32 = prefill_logits(torch, cfg, p32, tokens, ssm_impl="pallas")
+    rel32 = rel_err(logits32,
                     prefill_logits(torch, cfg, p32, tokens, ssm_impl="xla"))
     del p32
     torch.cuda.empty_cache()
@@ -416,7 +485,9 @@ def check_ssm_prefill(torch, cfg, params, tokens) -> dict:
     kernel = dataclasses.replace(cfg, ssm_impl="pallas")
     plain = dataclasses.replace(cfg, ssm_impl="xla")
     rels = []
-    with torch.inference_mode():
+    with torch.inference_mode(), RouteCount(
+            ssd, {"sm90": cfg.n_layers, "simt": 0},
+            "bf16 mixers on the SSD kernel"):
         x = embed_tokens(params, tokens, cfg)
         for i in range(cfg.n_layers):
             lp = {k: v[i] for k, v in params["layers"].items()}
@@ -440,13 +511,13 @@ def check_ssm_prefill(torch, cfg, params, tokens) -> dict:
 
 
 def phase_serving(torch, counters, cfg, params, check_prefill,
-                  want_launches, want_flash_routes) -> dict:
+                  want_launches, want_routes) -> dict:
     """Full-width serving through ServeEngine.run: ``check_prefill`` holds
     the prefill's last logits on the kernel path against the plain path,
     then the run goes with every kernel's launch count set to 0 just
     before it and read just after; ``want_launches`` maps each kernel
-    module's name to the launches the run must make, and
-    ``want_flash_routes`` the flash launches by route."""
+    module's name to the launches the run must make, and ``want_routes``
+    each module's name to its launches by route."""
     from repro_torch.core.mig_h100 import MigH100Backend
     from repro_torch.models import registry
     from repro_torch.serving.engine import EngineConfig, ServeEngine
@@ -466,23 +537,22 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
                          backend=MigH100Backend(), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa = counters["flash_attention"]
     for mod in counters.values():
         mod.launches = 0
-    fa.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
     t0 = time.perf_counter()
     out = engine.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
-    flash_routes = dict(fa.launches_by_route)
+    routes = {name: dict(mod.launches_by_route)
+              for name, mod in counters.items()}
     print(f"[serving] {cfg.name} kernel launches in ServeEngine.run: "
-          f"{launches}, flash by route {flash_routes} (layers "
-          f"{cfg.n_layers})", flush=True)
-    if launches != want_launches or flash_routes != want_flash_routes:
-        raise AssertionError(f"launches {launches}, flash by route "
-                             f"{flash_routes}; want {want_launches}, "
-                             f"{want_flash_routes}")
+          f"{launches}, by route {routes} (layers {cfg.n_layers})",
+          flush=True)
+    if launches != want_launches or routes != want_routes:
+        raise AssertionError(f"launches {launches}, by route {routes}; "
+                             f"want {want_launches}, {want_routes}")
     n_tok = sum(len(r.generated) for r in out)
     if n_tok != N_REQ * MAX_NEW or not all(
             0 <= t < cfg.vocab for r in out for t in r.generated):
@@ -497,7 +567,7 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
         "tokens_per_s": n_tok / run_s,
         "accountant_peak_in_use_gb": engine.accountant.peak_in_use / 2**30,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches, "flash_launches_by_route": flash_routes,
+        "launches": launches, "launches_by_route": routes,
         **checks,
     }
     print(f"[serving] {json.dumps(stats)}", flush=True)
@@ -596,8 +666,7 @@ def main() -> int:
         print(f"[build] {sorted(built)}", flush=True)
         for res in built.values():
             for line in res.log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {res.name}: {line.strip()}", flush=True)
+                print(f"[build] {res.name}: {line.strip()}", flush=True)
 
     # 3. each kernel against its plain version
     with clock("3 kernels"):
@@ -615,10 +684,11 @@ def main() -> int:
         serving = phase_serving(
             torch, counters, cfg, params, check_attn_prefill,
             {"flash_attention": cfg.n_layers, "ssd_scan": 0},
-            {"sm90": cfg.n_layers, "simt": 0})
+            {"flash_attention": {"sm90": cfg.n_layers, "simt": 0},
+             "ssd_scan": {"sm90": 0, "simt": 0}})
         for entry in flash:
-            entry["launches"] = serving["flash_launches_by_route"][
-                entry["kernel_route"]]
+            entry["launches"] = serving["launches_by_route"][
+                "flash_attention"][entry["kernel_route"]]
 
     # 5. early restart and regrow (serve prints each restart line)
     with clock("5 restart"):
@@ -634,14 +704,17 @@ def main() -> int:
         serving = phase_serving(
             torch, counters, cfg, params, check_ssm_prefill,
             {"flash_attention": 0, "ssd_scan": cfg.n_layers},
-            {"sm90": 0, "simt": 0})
-        scan["launches"] = serving["launches"]["ssd_scan"]
+            {"flash_attention": {"sm90": 0, "simt": 0},
+             "ssd_scan": {"sm90": cfg.n_layers, "simt": 0}})
+        for entry in scan:
+            entry["launches"] = serving["launches_by_route"]["ssd_scan"][
+                entry["kernel_route"]]
         del params
         torch.cuda.empty_cache()
         phase_smoke_tokens(torch, SSM_ARCH, "ssm_impl")
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
-    print(json.dumps({"kernels": [*flash, scan]}), flush=True)
+    print(json.dumps({"kernels": [*flash, *scan]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

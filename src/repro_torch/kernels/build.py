@@ -23,7 +23,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 #: every kernel source of the package, by library name
-SOURCES = ("flash_attention", "flash_attention_sm90", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_sm90", "ssd_scan",
+           "ssd_scan_sm90")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

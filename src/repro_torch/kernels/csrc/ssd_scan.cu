@@ -1,8 +1,12 @@
-// Mamba2 SSD chunk scan for Hopper (sm_90a).
+// Mamba2 SSD chunk scan for Hopper (sm_90a): the "simt" route, CUDA-core
+// f32 products.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py (_ssd_kernel,
-// launched by ssd_scan's pallas_call).  It computes the same function: per
-// (batch b, head h), over chunks of Q rows in order, with a = a[h] < 0,
+// launched by ssd_scan's pallas_call) on the "simt" route: f32 x, and bf16
+// x at a P, N or chunk that ssd_scan_sm90.cu (the "sm90" route, bf16 wgmma)
+// does not take; kernels/ssd_scan.py::route decides.  It computes the same
+// function: per (batch b, head h), over chunks of Q rows in order, with a =
+// a[h] < 0,
 //     csum_j  = sum_{k <= j} dt_k a              (within the chunk)
 //     y_j     = sum_{i <= j} (C_j . B_i) exp(csum_j - csum_i) dt_i x_i
 //             + exp(csum_j) C_j . state
@@ -12,17 +16,18 @@
 // in VMEM scratch and drops; the model's cache-filling prefill needs it.
 //
 // What bounds it.  At the serving prefill's shape (B=8, S=512, H=80, P=64,
-// N=128, Q=256, x bf16) the function moves ~110 MB (x and y in bf16, dt, B,
-// C and the final state in f32: ~33 us at 3.35 TB/s) and, as the TPU kernel
-// computes it, does ~43 GFLOP (~43 us at the bf16 tensor-core peak), so the
-// least time is set by the operations.  This first design takes every
-// product with f32 FMAs on the CUDA cores, as the TPU kernel takes them in
-// f32 (the reference holds f32 to 2e-4), each FMA fed by shared-memory
-// loads, and runs one block of 8 warps per SM (the tiles below take ~133 KB
-// of shared memory).  So it is bound by the f32 FMA rate and shared-memory
-// load issue, several times the operations bound.  Later steps: one C B^T
-// tile shared by all the heads of a batch row (it does not depend on h),
-// and bf16 or TF32 tensor-core products.
+// N=128, Q=256, x bf16) the function moves 110,362,944 bytes (x and y in
+// bf16; dt, a, B, C and the final state in f32: 32.9 us at 3.35 TB/s) and
+// needs 13.58 GFLOP (pairs i <= j, one C B^T per batch row and chunk, no
+// C . state in the zero-state first chunk: 13.7 us at the bf16 tensor-core
+// peak), so the least time is set by the bytes, 0.0329 ms
+// (chip_smoke.py::ssd_work).  This design takes every product with f32 FMAs
+// on the CUDA cores, as f32 parity at 2e-4 needs, each FMA fed by
+// shared-memory loads, recomputes C B^T for every head (~31 GFLOP in all),
+// and runs one block of 8 warps per SM (the tiles below take ~133 KB of
+// shared memory): it is bound by the f32 FMA rate and shared-memory load
+// issue, some 60x the bytes bound.  The bf16 route's kernel shares C B^T
+// between heads and runs its products on the tensor cores.
 //
 // Design.  The TPU walks chunks as a sequential grid axis with the state in
 // VMEM scratch; Hopper runs blocks in no order, so here one block of 256

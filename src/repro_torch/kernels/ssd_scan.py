@@ -4,8 +4,20 @@
 b/c [B,S,N]) and computes the Mamba2 SSD recurrence chunk by chunk, with
 the state carried in f32; it returns y in x's dtype and the final state
 [B,H,P,N] in f32.  A tensor on the CPU goes to the plain version
-(:func:`repro_torch.kernels.ref.ssd_ref`); a CUDA tensor goes to the kernel
-in ``csrc/ssd_scan.cu``, or the call raises.
+(:func:`repro_torch.kernels.ref.ssd_ref`).  A CUDA tensor goes to one of
+two kernels, by :func:`route`, a function of x's dtype, P, N and the chunk
+alone decided before the launch:
+
+- ``"sm90"``: bf16 x at P=64, N=128 and a chunk that is a multiple of 64
+  goes to ``csrc/ssd_scan_sm90.cu`` (``wgmma`` for every product, C Bᵀ
+  once per batch row for each pair of heads, the state update at f32
+  grade from hi/lo bf16 splits);
+- ``"simt"``: every other call (f32 x, which f32 parity at 2e-4 holds to
+  f32 products, and bf16 at other P, N or chunks) goes to
+  ``csrc/ssd_scan.cu`` (CUDA-core f32 products).
+
+A failed build or launch on either route raises; no call is retried on
+the other kernel.
 """
 
 from __future__ import annotations
@@ -22,19 +34,40 @@ HEAD_DIMS = (16, 32, 64, 128)   # P
 MAX_STATE = 128                 # N
 MAX_CHUNK = 1024                # Q
 DTYPES = (torch.float32, torch.bfloat16)
+#: (P, N) the bf16 wgmma kernel takes, and the rows of its step: the chunk
+#: must be a multiple of it
+SM90_HEAD_DIM, SM90_STATE, SM90_STEP = 64, 128, 64
+ROUTES = ("sm90", "simt")
 
-#: kernel launches in this process; only CUDA calls count
+#: kernel launches in this process, in all and by route; only CUDA calls
+#: count
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def route(dtype: torch.dtype, head_dim: int, state_dim: int,
+          chunk: int) -> str:
+    """The kernel a CUDA call of this x dtype, P, N and chunk goes to."""
+    if (dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM
+            and state_dim == SM90_STATE and chunk % SM90_STEP == 0):
+        return "sm90"
+    return "simt"
+
+
+#: the library of each route; its C entry ``<library>_fwd`` takes the same
+#: arguments on both routes
+LIBRARIES = {"sm90": "ssd_scan_sm90", "simt": "ssd_scan"}
 
 
 @functools.cache
-def _entry():
-    lib = build.load("ssd_scan")
-    fn = lib.ssd_scan_fwd
+def _entry(route_name: str):
+    name = LIBRARIES[route_name]
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_fwd")
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = lib.ssd_scan_error_string
+    err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
@@ -75,7 +108,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """x: [B,S,H,P]; dt: [B,S,H] (post-softplus); a: [H] (< 0);
     b_in/c_in: [B,S,N] -> (y [B,S,H,P] in x's dtype, final state
     [B,H,P,N] f32).  S must be a multiple of ``chunk``."""
-    global launches
     _check(x, dt, a, b_in, c_in, chunk)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a, b_in, c_in)
@@ -83,18 +115,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"no ssd_scan for device {x.device}")
     if not all(t.is_contiguous() for t in (x, dt, a, b_in, c_in)):
         raise ValueError("x, dt, a, b and c must be contiguous")
-    fn, err = _entry()
+    return _launch(route(x.dtype, x.shape[3], b_in.shape[2], chunk), x, dt,
+                   a, b_in, c_in, chunk)
+
+
+def _launch(route_name: str, x: torch.Tensor, dt: torch.Tensor,
+            a: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
+            chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the named route's kernel on checked contiguous CUDA
+    tensors."""
+    global launches
+    fn, err = _entry(route_name)
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(),
+            c_in.data_ptr(), y.data_ptr(), state.data_ptr())
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(),
-                c_in.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, h,
-                p, n, chunk, int(x.dtype == torch.bfloat16), stream)
+        rc = fn(*ptrs, bsz, s, h, p, n, chunk, int(x.dtype == torch.bfloat16),
+                stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan launch failed: {err(rc).decode()} "
-                           f"(cudaError {rc})")
+        raise RuntimeError(f"ssd_scan ({route_name}) launch failed: "
+                           f"{err(rc).decode()} (code {rc})")
     launches += 1
+    launches_by_route[route_name] += 1
     return y, state

@@ -12,8 +12,8 @@ engine's prefill call), and 16 decode steps as the engine takes them
 (``registry.decode_step``, the greedy argmax and the copy of the tokens
 to the host).  For each window it prints the wall time, the summed device
 kernel time, the device's busy share, the kernel launches, and the
-kernels that take the most device time, and how many launches were flash
-and copy kernels, then one JSON line.  It needs a card and fails without
+kernels that take the most device time, and how many launches were flash,
+SSD and copy kernels, then one JSON line.  It needs a card and fails without
 one.
 """
 
@@ -63,9 +63,10 @@ def _window(fn, device) -> dict:
 
 
 #: kernel launches counted by a word of their name: the flash kernels
-#: (flash_fwd_kernel, flash_fwd_sm90_kernel) and PyTorch's copy kernels
+#: (flash_fwd_kernel, flash_fwd_sm90_kernel), the SSD kernels
+#: (ssd_scan_kernel, ssd_scan_sm90_kernel) and PyTorch's copy kernels
 #: (direct_copy_kernel_cuda and the like, which layout changes launch)
-COUNTED = ("flash", "copy")
+COUNTED = ("flash", "ssd", "copy")
 SEED = 0
 REQUESTS, PROMPT_LEN, MAX_CONTEXT, DECODE_STEPS = 8, 512, 1024, 16
 

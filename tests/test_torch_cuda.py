@@ -175,15 +175,76 @@ def test_ssd_kernel_matches_plain(card, dtype, b, s, h, p, n, chunk):
     version, on the same inputs (padded S, partial chunks, P and N of the
     serving and smoke configs)."""
     args = _ssd_inputs(card, dtype, b, s, h, p, n, s + h + p + n)
-    before = ssd.launches
+    before, by_route = ssd.launches, dict(ssd.launches_by_route)
     y, state = ssd_mixer(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd.launches == before + 1
+    # the routing table itself is held in tests/test_torch_ssd_route.py
+    want = ssd.route(dtype, p, n, chunk)
+    assert {r: ssd.launches_by_route[r] - by_route[r] for r in by_route} == {
+        r: int(r == want) for r in ssd.ROUTES}
     y_ref, state_ref = ssd_ref(*args)
     assert y.dtype == dtype and y.shape == (b, s, h, p)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL[dtype],
                                rtol=SSD_TOL[dtype])
     torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+# (b, s, h, chunk): the bf16 wgmma kernel's cases at P=64, N=128: chunks
+# of 64, 128 and 256, one head (a block of one warpgroup) and odd H, ragged
+# S (padded by the adapter), one 64-row step, and 16 steps
+SM90_SSD_CASES = [
+    (2, 512, 4, 64), (2, 512, 4, 128), (1, 256, 6, 256), (2, 512, 1, 256),
+    (2, 200, 2, 128), (1, 100, 3, 256), (3, 64, 2, 64), (1, 1024, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,chunk", SM90_SSD_CASES)
+def test_sm90_ssd_kernel_matches_plain(card, b, s, h, chunk):
+    args = _ssd_inputs(card, torch.bfloat16, b, s, h, 64, 128,
+                       7 * s + h + chunk)
+    before = dict(ssd.launches_by_route)
+    y, state = ssd_mixer(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {r: ssd.launches_by_route[r] - before[r] for r in before} == {
+        "sm90": 1, "simt": 0}
+    y_ref, state_ref = ssd_ref(*args)
+    assert y.dtype == torch.bfloat16 and y.shape == (b, s, h, 64)
+    tol = SSD_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_ssm_prefill_on_sm90_kernel_matches_plain_path(card):
+    """mamba2's smoke config widened to the wgmma kernel's shapes (8 heads
+    of P=64, N=128, chunk 64), bf16 weights: the prefill makes one sm90
+    launch a layer, and its last logits and state cache stay within 5e-2
+    of the plain chunked SSD's (relative to the largest value)."""
+    cfg = dataclasses.replace(get_smoke_config("mamba2-2.7b"),
+                              ssm_state=128, ssm_heads=8, ssm_chunk=64)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = registry.init_params(gen, cfg)[0]
+    tokens = registry.make_dummy_batch(cfg, 3, 200, seed=1,
+                                       device=card)["tokens"]
+    out, caches = {}, {}
+    with torch.inference_mode():
+        for impl in ("xla", "pallas"):
+            c = dataclasses.replace(cfg, ssm_impl=impl)
+            caches[impl] = registry.init_caches(c, 3, 256, card)
+            before = dict(ssd.launches_by_route)
+            out[impl], _ = registry.prefill_caches(params, c, tokens,
+                                                   caches[impl])
+            want = cfg.n_layers if impl == "pallas" else 0
+            assert {r: ssd.launches_by_route[r] - before[r]
+                    for r in before} == {"sm90": want, "simt": 0}
+    assert bool(torch.isfinite(out["pallas"]).all())
+    err = ((out["pallas"].float() - out["xla"].float()).abs().max()
+           / out["xla"].float().abs().max())
+    assert float(err) < 5e-2, float(err)
+    want = caches["xla"]["ssm"]["state"]
+    got = caches["pallas"]["ssm"]["state"]
+    assert float((got - want).abs().max() / want.abs().max()) < 5e-2
 
 
 @pytest.mark.cuda
