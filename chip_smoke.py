@@ -11,12 +11,13 @@ Phases, each raising on failure (the script then exits non-zero):
    ssd_scan_sm90.cu, one nvcc each, started together), printing nvcc's
    and ptxas's whole output;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving paths' shapes and a few edge cases, with times; the flash
-   cases go to both routes (bf16 at D 64/128 to the wgmma kernel "sm90",
-   f32 to the CUDA-core kernel "simt"), and so do the SSD cases (bf16 at
-   P=64, N=128 and a chunk that is a multiple of 64 to the wgmma kernel
-   "sm90", the rest to the CUDA-core kernel "simt"), each case's launch
-   counted on the route it must take;
+   the serving paths' shapes (flash at qwen3's and zamba2's, SSD at
+   mamba2's and zamba2's) and a few edge cases, with times at each serving
+   shape; the flash cases go to both routes (bf16 at D 64/112/128 to the
+   wgmma kernel "sm90", f32 to the CUDA-core kernel "simt"), and so do the
+   SSD cases (bf16 at P=64, N 64 or 128 and a chunk that is a multiple of
+   64 to the wgmma kernel "sm90", the rest to the CUDA-core kernel
+   "simt"), each case's launch counted on the route it must take;
 4. serving: qwen3-0.6b at full width (random bf16 weights from a seed)
    through ServeEngine.run with the prefill on the flash kernel, counting
    the kernels' launches in that run (28 on "sm90", none on "simt");
@@ -25,7 +26,15 @@ Phases, each raising on failure (the script then exits non-zero):
 4b. serving: mamba2-2.7b at full width through ServeEngine.run with the
    prefill's SSD on the chunk-scan kernel, counting the launches (64 on
    "sm90", none on "simt"), after qwen3's weights are freed; then the f32
-   smoke config's greedy tokens on both SSD paths.
+   smoke config's greedy tokens on both SSD paths;
+4c. serving: zamba2-7b at full width and depth (81 Mamba2 layers, the
+   shared attention block applied 13 times) through ServeEngine.run with
+   the prefill on both kernels, counting the launches (13 flash and 81 SSD,
+   all on "sm90"), after mamba2's weights are freed: every block (Mamba2
+   mixer and shared attention) kernel vs plain, one by one, on f32 weights
+   (both "simt" kernels) and on bf16 weights (both "sm90" kernels), and
+   the f32 last logits printed beside; then the f32 smoke config's greedy
+   tokens on both paths.
 
 Each phase prints its host seconds as it ends.  The script prints a JSON
 line of kernel results, the card line, and last ``{"ok": true, "device":
@@ -47,6 +56,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ARCH = "qwen3-0.6b"
 SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "zamba2-7b"
 SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -67,14 +77,16 @@ SSD_STATE_TOL = 2e-4
 PREFILL_REL_TOL = 5e-2
 # mamba2 prefill logits on the same random weights cast to f32, SSD kernel
 # vs plain chunked SSD: both sum in f32 in other orders (~1e-6 a layer),
-# and 64 layers amplify that (relative to the largest logit)
+# and 64 layers amplify that (relative to the largest logit); zamba2's f32
+# blocks are held to it one by one (see check_hybrid_prefill)
 SSM_PREFILL_F32_REL_TOL = 1e-3
 # mamba2 on its bf16 weights, layer by layer: each layer's mixer output on
 # the kernel against the plain chunked SSD, both fed the plain path's
 # residual stream (relative to the layer's largest output).  The last
 # logits are not compared in bf16: over 64 random layers two plain paths
 # that differ only in the chunk already disagree by ~0.1 of the largest
-# logit.
+# logit.  zamba2's 81 random bf16 layers are held the same way, each Mamba2
+# mixer and each shared-attention output.
 SSM_LAYER_REL_TOL = 5e-2
 
 
@@ -153,27 +165,37 @@ def graph_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
 
 def flash_route(torch, dtype, d) -> str:
     """The kernel the wrapper must pick: the wgmma kernel for bf16 at head
-    dims 64 and 128, the CUDA-core kernel for everything else."""
-    return "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    dims 64, 112 and 128, the CUDA-core kernel for everything else."""
+    return ("sm90" if dtype == torch.bfloat16 and d in (64, 112, 128)
+            else "simt")
+
+
+#: the serving prefills' attention shapes (B, S, H, KH, D), causal, and the
+#: prefix of their cases' names: qwen3-0.6b (GQA 2:1, D=128) and zamba2-7b
+#: (MHA at D=112: the wgmma kernel's one-head-two-q-tiles layout)
+FLASH_SERVING = [("qwen3-0.6b", "prefill", (8, 512, 16, 8, 128)),
+                 ("zamba2-7b", "zamba2", (8, 512, 32, 32, 112))]
 
 
 def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
-    import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    # (name, B, S, H, KH, D, dtype, causal, window); the first two are the
-    # serving prefill's shape (qwen3-0.6b: 16 heads, 8 KV heads, D=128).
-    # bf16 cases at D 64/128 go to the wgmma kernel, the rest to the
-    # CUDA-core kernel.
-    cases = [
-        ("prefill-bf16", 8, 512, 16, 8, 128, torch.bfloat16, True, None),
-        ("prefill-f32", 8, 512, 16, 8, 128, torch.float32, True, None),
+    # (name, B, S, H, KH, D, dtype, causal, window): each serving prefill's
+    # shape in bf16 and f32, then edge cases.  bf16 cases at D 64/112/128
+    # go to the wgmma kernel, the rest to the CUDA-core kernel.
+    cases = [(f"{tag}-{name}", *shape, dtype, True, None)
+             for _, tag, shape in FLASH_SERVING
+             for name, dtype in (("bf16", torch.bfloat16),
+                                 ("f32", torch.float32))]
+    cases += [
         ("ragged-s200", 8, 200, 16, 8, 128, torch.bfloat16, True, None),
         ("window128", 8, 512, 16, 8, 128, torch.bfloat16, True, 128),
         ("non-causal-s200", 2, 200, 16, 8, 128, torch.float32, False, None),
         ("gqa-8to1", 8, 512, 16, 2, 128, torch.bfloat16, True, None),
         ("mha-d64-s1024", 2, 1024, 8, 8, 64, torch.bfloat16, True, None),
         ("non-causal-s200-bf16", 2, 200, 16, 8, 128, torch.bfloat16, False,
+         None),
+        ("zamba2-ragged-s200", 8, 200, 32, 32, 112, torch.bfloat16, True,
          None),
     ]
     errors, routes = {}, {}
@@ -201,14 +223,21 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
             raise AssertionError(f"flash_attention {name}: kernel disagrees "
                                  f"with attention_ref (max err "
                                  f"{errors[name]})")
+    return [entry for arch, tag, shape in FLASH_SERVING
+            for entry in flash_timings(torch, fa, attention_ref, gen, arch,
+                                       tag, shape, errors, routes)]
 
-    # Device times at the serving prefill's shape, all in this call: the
-    # wgmma kernel on model-layout views (as the prefill hands them over),
-    # the CUDA-core kernel in f32 (its route) and in bf16 (the kernel the
-    # bf16 prefill ran before the wgmma kernel, timed as a yardstick), the
-    # plain versions, and scaled_dot_product_attention (not used by the
-    # port).
-    b, s, h, kh, d = 8, 512, 16, 8, 128
+
+def flash_timings(torch, fa, attention_ref, gen, arch, tag, shape, errors,
+                  routes) -> list[dict]:
+    """Device times at a serving prefill's shape, all in this call: the
+    wgmma kernel on model-layout views (as the prefill hands them over),
+    the CUDA-core kernel in f32 (its route) and in bf16 (the kernel the
+    bf16 prefill would run without the wgmma kernel, timed as a
+    yardstick), the plain versions, and scaled_dot_product_attention (not
+    used by the port); returns the kernels line's entry of each route."""
+    import torch.nn.functional as F
+    b, s, h, kh, d = shape
     qm, km, vm = (torch.randn((b, s, n, d), generator=gen, device="cuda")
                   .to(torch.bfloat16) for n in (h, kh, kh))
     q, k, v = (x.transpose(1, 2) for x in (qm, km, vm))
@@ -235,32 +264,32 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
         nbytes, flops = attention_work(b, h, kh, s, d, itemsize, True, None)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
-        tag = "bf16" if dtype == "bfloat16" else "f32"
+        key = "bf16" if dtype == "bfloat16" else "f32"
         kernel_ms = ms["sm90" if route == "sm90" else "simt_f32"]
-        print(f"[kernels] flash_attention ({route}) B={b} S={s} H={h} "
-              f"KH={kh} D={d} {tag} causal: kernel {kernel_ms:.4f} ms, "
-              f"plain {ms['plain_' + tag]:.4f} ms, sdpa "
-              f"{ms['sdpa_' + tag]:.4f} ms, bound "
+        print(f"[kernels] flash_attention ({route}) {arch} B={b} S={s} H={h} "
+              f"KH={kh} D={d} {key} causal: kernel {kernel_ms:.4f} ms, "
+              f"plain {ms['plain_' + key]:.4f} ms, sdpa "
+              f"{ms['sdpa_' + key]:.4f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP)",
               flush=True)
         entries.append({
             "name": "flash_attention", "route": "cuda", "kernel_route": route,
-            "dtype": dtype,
+            "arch": arch, "dtype": dtype,
             "source": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
                        if route == "sm90" else
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
             "replaces": "src/repro/kernels/flash_attention.py:25",
-            "max_abs_err": errors["prefill-" + tag],
-            "ms": kernel_ms, "plain_ms": ms["plain_" + tag],
+            "max_abs_err": errors[f"{tag}-{key}"],
+            "ms": kernel_ms, "plain_ms": ms["plain_" + key],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": ms["sdpa_" + tag],
+            "library_ms": ms["sdpa_" + key],
             "case_max_abs_err": {n: e for n, e in errors.items()
                                  if routes[n] == route},
         })
     entries[0]["ms_repeat"] = ms["sm90_again"]
     entries[0]["simt_bf16_ms"] = ms["simt_bf16"]
-    print(f"[kernels] flash_attention bf16 at the serving shape: sm90 "
+    print(f"[kernels] flash_attention bf16 at {arch}'s shape: sm90 "
           f"{ms['sm90']:.4f} / {ms['sm90_again']:.4f} ms against the simt "
           f"kernel's {ms['simt_bf16']:.4f} ms on the same inputs", flush=True)
     return entries
@@ -298,6 +327,13 @@ def ssd_errors(y, state, y_ref, state_ref, tol):
     return float(err_y.max()), float(err_s.max()), bad
 
 
+#: the serving prefills' SSD shapes (B, S, H, P, N, chunk) and the prefix
+#: of their cases' names: mamba2-2.7b (N=128) and zamba2-7b (N=64, which
+#: the sm90 route zero-pads to the kernel's 128)
+SSD_SERVING = [("mamba2-2.7b", "prefill", (8, 512, 80, 64, 128, 256)),
+               ("zamba2-7b", "zamba2", (8, 512, 112, 64, 64, 256))]
+
+
 def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
                      ) -> list[dict]:
     gen = torch.Generator(device="cuda")
@@ -312,12 +348,13 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
         a = -torch.exp(rnd(h) * 0.2)
         return x, dt, a, rnd(b, s, n) * 0.3, rnd(b, s, n) * 0.3
 
-    # (name, B, S, H, P, N, chunk, dtype, the route the call must take);
-    # the first two are the serving prefill's shape (mamba2-2.7b: 80 heads
-    # of P=64, N=128, chunk 256).
-    cases = [
-        ("prefill-bf16", 8, 512, 80, 64, 128, 256, torch.bfloat16, "sm90"),
-        ("prefill-f32", 8, 512, 80, 64, 128, 256, torch.float32, "simt"),
+    # (name, B, S, H, P, N, chunk, dtype, the route the call must take):
+    # each serving prefill's shape in bf16 and f32, then edge cases
+    cases = [(f"{tag}-{name}", *shape, dtype, route)
+             for _, tag, shape in SSD_SERVING
+             for name, dtype, route in (("bf16", torch.bfloat16, "sm90"),
+                                        ("f32", torch.float32, "simt"))]
+    cases += [
         ("ragged-s200", 8, 200, 80, 64, 128, 256, torch.float32, "simt"),
         ("chunk64-s512", 8, 512, 80, 64, 128, 64, torch.bfloat16, "sm90"),
         ("one-partial-chunk-s100", 8, 100, 80, 64, 128, 256, torch.float32,
@@ -327,6 +364,7 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
          "sm90"),
         ("bf16-p128-n16-chunk32", 8, 512, 8, 128, 16, 32, torch.bfloat16,
          "simt"),
+        ("zamba2-chunk64", 8, 512, 112, 64, 64, 64, torch.bfloat16, "sm90"),
     ]
     errors, routes = {}, {}
     for name, b, s, h, p, n, chunk, dtype, route in cases:
@@ -340,6 +378,8 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
             raise AssertionError(f"ssd_scan {name}: launches by route "
                                  f"{moved}, want one on {route}")
         y_ref, state_ref = ssd_ref(*args)
+        if state.shape != (b, h, p, n):   # no padded state column returned
+            raise AssertionError(f"ssd_scan {name}: state {state.shape}")
         tol = SSD_TOL[str(dtype).split(".")[1]]
         errors[name], err_s, bad = ssd_errors(y, state, y_ref, state_ref,
                                               tol)
@@ -351,12 +391,21 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
                                  f"ssd_ref (y err {errors[name]}, state err "
                                  f"{err_s})")
 
-    # Both kernels at the serving prefill's shape on the same bf16 inputs:
-    # each held to ssd_ref there, then timed twice, in turns (sm90, simt,
-    # simt, sm90), by CUDA-graph replay.  The plain version is a 512-step
-    # loop, so it is timed over fewer eager calls; the plain chunked SSD
-    # (the model's ssm_impl="xla" path) is timed beside it.
-    b, s, h, p, n, chunk = 8, 512, 80, 64, 128, 256
+    return [entry for arch, _, shape in SSD_SERVING
+            for entry in ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs,
+                                     arch, shape, errors, routes)]
+
+
+def ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs, arch, shape,
+                errors, routes) -> list[dict]:
+    """Both kernels at a serving prefill's shape on the same bf16 inputs:
+    each held to ssd_ref there, then timed twice, in turns (sm90, simt,
+    simt, sm90), by CUDA-graph replay (the sm90 time includes the wrapper's
+    padding of B and C where N is 64).  The plain version is a 512-step
+    loop, so it is timed over fewer eager calls; the plain chunked SSD (the
+    model's ssm_impl="xla" path) is timed beside it.  Returns the kernels
+    line's entry of each route."""
+    b, s, h, p, n, chunk = shape
     args = inputs(b, s, h, p, n, torch.bfloat16)
     y_ref, state_ref = ssd_ref(*args)
     serving_err = {}
@@ -366,7 +415,7 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
         serving_err[route], err_s, bad = ssd_errors(
             y, state, y_ref, state_ref, SSD_TOL["bfloat16"])
         if bad:
-            raise AssertionError(f"ssd_scan ({route}) at the serving shape: "
+            raise AssertionError(f"ssd_scan ({route}) at {arch}'s shape: "
                                  f"y err {serving_err[route]}, state err "
                                  f"{err_s}")
     ms = {}
@@ -379,8 +428,9 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
     nbytes, flops = ssd_work(b, s, h, p, n, chunk, 2)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    print(f"[kernels] ssd_scan B={b} S={s} H={h} P={p} N={n} Q={chunk} x "
-          f"bf16: sm90 {ms['sm90']:.4f} / {ms['sm90_again']:.4f} ms, simt "
+    print(f"[kernels] ssd_scan {arch} B={b} S={s} H={h} P={p} N={n} "
+          f"Q={chunk} x bf16: sm90 {ms['sm90']:.4f} / "
+          f"{ms['sm90_again']:.4f} ms, simt "
           f"{ms['simt']:.4f} / {ms['simt_again']:.4f} ms, plain "
           f"{plain_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms, bound "
           f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP); no "
@@ -390,7 +440,7 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
                           ("simt", "ssd_scan.cu")):
         entries.append({
             "name": "ssd_scan", "route": "cuda", "kernel_route": route,
-            "dtype": "bfloat16",
+            "arch": arch, "dtype": "bfloat16",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": "src/repro/kernels/ssd_scan.py:29",
             "max_abs_err": serving_err[route],
@@ -510,6 +560,152 @@ def check_ssm_prefill(torch, cfg, params, tokens) -> dict:
             "layer_bf16_kernel_vs_plain_max_rel_err": rels[worst]}
 
 
+#: zamba2's f32 last logits are also compared at this depth, 2 groups of
+#: 6 and a tail of 3 (see check_hybrid_prefill)
+HYBRID_LOGITS_LAYERS = 15
+
+
+def hybrid_block_errors(torch, cfg, params, tokens, exact_attention=False
+                        ) -> dict[str, list[float]]:
+    """Each block of the zamba2 stack on the kernels, fed the plain path's
+    residual stream, against the plain path's block, relative to the
+    block's largest output: every Mamba2 mixer ("mamba2 mixer") and every
+    shared-attention output ("shared attention").  With
+    ``exact_attention`` the shared attention is held instead against the
+    flash kernel's plain version (attention_ref, f32 scores) on the block's
+    own q/k/v, and its distance to the plain path is kept under "plain
+    path"."""
+    from repro_torch.kernels.ops import flash_mha
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import attention, hybrid, ssm
+    from repro_torch.models.layers import embed_tokens
+    kernel = dataclasses.replace(cfg, attn_impl="pallas", ssm_impl="pallas")
+    plain = dataclasses.replace(cfg, attn_impl="xla", ssm_impl="xla")
+    shared = params["shared_attn"]
+    positions = torch.arange(tokens.shape[1], device="cuda").expand(
+        tokens.shape)
+    rels = {"mamba2 mixer": [], "shared attention": [], "plain path": []}
+
+    def held(kind, out, ref):
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{kind} {len(rels[kind])}: non-finite")
+        rels[kind].append(rel_err(out.float(), ref.float()))
+        return ref
+
+    def attend(h, g):
+        ref = attention.mha_full(shared, h, plain, positions)
+        if not exact_attention:
+            return held("shared attention",
+                        attention.mha_full(shared, h, kernel, positions), ref)
+        q, k, v = attention._project_qkv(shared, h, cfg, positions)
+        out = attention._out_proj(flash_mha(q, k, v, causal=True),
+                                  shared["wo"])
+        exact = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                              causal=True).transpose(1, 2)
+        held("shared attention", out,
+             attention._out_proj(exact, shared["wo"]))
+        rels["plain path"].append(rel_err(out.float(), ref.float()))
+        return ref
+
+    with torch.inference_mode():
+        hybrid.walk(params, cfg, embed_tokens(params, tokens, cfg),
+                    lambda lp, h, stack, i: held(
+                        "mamba2 mixer", ssm.ssm_forward(lp, h, kernel),
+                        ssm.ssm_forward(lp, h, plain)), attend)
+    return rels
+
+
+def check_blocks(cfg, rels, tol, what) -> dict:
+    out = {}
+    for kind in ("mamba2 mixer", "shared attention"):
+        errs = rels[kind]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        print(f"[serving] {cfg.name} {what} {kind} output, kernel vs plain, "
+              f"block by block: max rel err {errs[worst]:.3e} at block "
+              f"{worst} of {len(errs)}, median {float(np.median(errs)):.3e} "
+              f"(tol {tol})", flush=True)
+        if not errs[worst] < tol:
+            raise AssertionError(f"{what} {kind} {worst}: kernel vs plain rel "
+                                 f"err {errs[worst]}")
+        out[f"{what}_{kind.replace(' ', '_')}_max_rel_err"] = errs[worst]
+    return out
+
+
+def check_hybrid_prefill(torch, cfg, params, tokens) -> dict:
+    """zamba2, held block by block, as mamba2's bf16 mixers are.  On the
+    weights cast to f32 (both CUDA-core kernels): each of the 81 Mamba2
+    mixers and 13 shared-attention outputs against the plain path.  The
+    last prefill logits are compared but held to no limit: the reference's
+    init draws wq and wk at scale 1/sqrt(n_heads), so without qk-norm the
+    random model's scores are in the hundreds and each shared-attention
+    application multiplies a perturbation by about as much.  Beside the
+    kernels-vs-plain distance at HYBRID_LOGITS_LAYERS layers and at full
+    depth, two plain paths that differ only in the SSD chunk are compared
+    at HYBRID_LOGITS_LAYERS layers, which shows how far the sum order alone
+    moves the logits.  On the bf16 weights (both wgmma kernels), block by
+    block: each Mamba2
+    mixer against the plain mixer, each shared-attention output against the
+    same block with the flash kernel's plain version (attention_ref) on the
+    same bf16 q/k/v.  The model's plain attention, like the reference's,
+    rounds the scores to bf16 before the softmax, one step being ~1 at
+    these scores, so it is no measure of the kernel; its distance is
+    printed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.module import cast_tree
+    n_groups = cfg.n_layers // cfg.attn_every
+    p32 = cast_tree(params, torch.float32)
+    # f32 goes to both CUDA-core kernels
+    with RouteCount(fa, {"sm90": 0, "simt": n_groups},
+                    "f32 shared attention on the flash kernel"), \
+            RouteCount(ssd, {"sm90": 0, "simt": cfg.n_layers},
+                       "f32 mixers on the SSD kernel"):
+        out = check_blocks(cfg, hybrid_block_errors(torch, cfg, p32, tokens),
+                           SSM_PREFILL_F32_REL_TOL, "f32")
+    m = cfg.attn_every
+    cut = dataclasses.replace(cfg, n_layers=HYBRID_LOGITS_LAYERS)
+    n_cut = HYBRID_LOGITS_LAYERS // m * m
+    p_cut = {**p32,
+             "mamba_layers": {k: v[:n_cut]
+                              for k, v in p32["mamba_layers"].items()},
+             "mamba_tail": {k: v[:HYBRID_LOGITS_LAYERS - n_cut]
+                            for k, v in p32["mamba_tail"].items()}}
+    for c, p in ((cut, p_cut), (cfg, p32)):
+        plain_logits = prefill_logits(torch, c, p, tokens, attn_impl="xla",
+                                      ssm_impl="xla")
+        rels = {"kernels vs plain": rel_err(prefill_logits(
+            torch, c, p, tokens, attn_impl="pallas", ssm_impl="pallas"),
+            plain_logits)}
+        if c is cut:
+            rels["plain at chunk 128 vs plain"] = rel_err(prefill_logits(
+                torch, c, p, tokens, attn_impl="xla", ssm_impl="xla",
+                ssm_chunk=128), plain_logits)
+        for what, rel in rels.items():
+            key = what.replace(" ", "_")
+            out[f"prefill_f32_{c.n_layers}_layers_{key}_rel_err"] = rel
+            print(f"[serving] {cfg.name} prefill last logits on f32 weights "
+                  f"at {c.n_layers} layers, {what}: rel err {rel:.3e} (no "
+                  f"limit)", flush=True)
+    del p32, p_cut
+    torch.cuda.empty_cache()
+
+    with RouteCount(fa, {"sm90": n_groups, "simt": 0},
+                    "bf16 shared attention on the flash kernel"), \
+            RouteCount(ssd, {"sm90": cfg.n_layers, "simt": 0},
+                       "bf16 mixers on the SSD kernel"):
+        rels = hybrid_block_errors(torch, cfg, params, tokens,
+                                   exact_attention=True)
+    out.update(check_blocks(cfg, rels, SSM_LAYER_REL_TOL, "bf16"))
+    out["bf16_shared_attention_vs_plain_path_max_rel_err"] = max(
+        rels["plain path"])
+    print(f"[serving] {cfg.name} bf16 shared attention output, kernel vs "
+          f"the plain path (scores rounded to bf16): max rel err "
+          f"{max(rels['plain path']):.3e}, median "
+          f"{float(np.median(rels['plain path'])):.3e} (no limit)",
+          flush=True)
+    return out
+
+
 def phase_serving(torch, counters, cfg, params, check_prefill,
                   want_launches, want_routes) -> dict:
     """Full-width serving through ServeEngine.run: ``check_prefill`` holds
@@ -575,9 +771,10 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     return stats
 
 
-def phase_smoke_tokens(torch, arch, impl_field) -> None:
+def phase_smoke_tokens(torch, arch, impl_fields) -> None:
     """Greedy tokens of the 2-layer smoke config with f32 weights: the
-    kernel path and the plain path must pick the same tokens."""
+    kernel path and the plain path (every config field of ``impl_fields``
+    set to "pallas", or to "xla") must pick the same tokens."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import registry
@@ -590,7 +787,7 @@ def phase_smoke_tokens(torch, arch, impl_field) -> None:
     params = cast_tree(registry.init_params(gen, cfg)[0], torch.float32)
     got = {}
     for impl in ("pallas", "xla"):
-        c = dataclasses.replace(cfg, **{impl_field: impl})
+        c = dataclasses.replace(cfg, **dict.fromkeys(impl_fields, impl))
         reqs = make_requests(c, 4, 100, 24, SEED)
         eng = ServeEngine(c, params, EngineConfig(max_batch=4,
                                                   max_context=256,
@@ -601,8 +798,17 @@ def phase_smoke_tokens(torch, arch, impl_field) -> None:
         raise AssertionError(f"{arch} smoke config: kernel and plain paths "
                              f"generated different tokens")
     print(f"[smoke] {arch} f32 smoke config: identical greedy tokens on both "
-          f"{impl_field} paths ({sum(map(len, got['xla']))} tokens)",
-          flush=True)
+          f"{'/'.join(impl_fields)} paths ({sum(map(len, got['xla']))} "
+          f"tokens)", flush=True)
+
+
+def set_launches(entries, serving) -> None:
+    """Each kernels-line entry of the served arch takes its route's launch
+    count from that arch's ServeEngine.run."""
+    for entry in entries:
+        if entry["arch"] == serving["arch"]:
+            entry["launches"] = serving["launches_by_route"][entry["name"]][
+                entry["kernel_route"]]
 
 
 def phase_restart(cfg, params) -> list[str]:
@@ -676,7 +882,7 @@ def main() -> int:
 
     # 4. full-width qwen3 serving on the flash prefill
     with clock("4 qwen3 serving"):
-        phase_smoke_tokens(torch, ARCH, "attn_impl")
+        phase_smoke_tokens(torch, ARCH, ("attn_impl",))
         cfg = dataclasses.replace(get_config(ARCH), attn_impl="pallas")
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
@@ -686,9 +892,7 @@ def main() -> int:
             {"flash_attention": cfg.n_layers, "ssd_scan": 0},
             {"flash_attention": {"sm90": cfg.n_layers, "simt": 0},
              "ssd_scan": {"sm90": 0, "simt": 0}})
-        for entry in flash:
-            entry["launches"] = serving["launches_by_route"][
-                "flash_attention"][entry["kernel_route"]]
+        set_launches(flash, serving)
 
     # 5. early restart and regrow (serve prints each restart line)
     with clock("5 restart"):
@@ -706,12 +910,27 @@ def main() -> int:
             {"flash_attention": 0, "ssd_scan": cfg.n_layers},
             {"flash_attention": {"sm90": 0, "simt": 0},
              "ssd_scan": {"sm90": cfg.n_layers, "simt": 0}})
-        for entry in scan:
-            entry["launches"] = serving["launches_by_route"]["ssd_scan"][
-                entry["kernel_route"]]
+        set_launches(scan, serving)
         del params
         torch.cuda.empty_cache()
-        phase_smoke_tokens(torch, SSM_ARCH, "ssm_impl")
+        phase_smoke_tokens(torch, SSM_ARCH, ("ssm_impl",))
+
+    # 4c. full-width zamba2 serving on both kernels, on its own memory
+    with clock("4c zamba2 serving"):
+        cfg = dataclasses.replace(get_config(HYBRID_ARCH), attn_impl="pallas",
+                                  ssm_impl="pallas")
+        gen.manual_seed(SEED)
+        params, _ = registry.init_params(gen, cfg)
+        n_groups = cfg.n_layers // cfg.attn_every
+        serving = phase_serving(
+            torch, counters, cfg, params, check_hybrid_prefill,
+            {"flash_attention": n_groups, "ssd_scan": cfg.n_layers},
+            {"flash_attention": {"sm90": n_groups, "simt": 0},
+             "ssd_scan": {"sm90": cfg.n_layers, "simt": 0}})
+        set_launches(flash + scan, serving)
+        del params
+        torch.cuda.empty_cache()
+        phase_smoke_tokens(torch, HYBRID_ARCH, ("attn_impl", "ssm_impl"))
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
     print(json.dumps({"kernels": [*flash, *scan]}), flush=True)

@@ -30,7 +30,8 @@
 // heaviest causal tiles start first.
 //
 // Layout: q [B,H,Sq,D], k/v [B,KH,Sk,D], o [B,H,Sq,D], all contiguous,
-// Sq and Sk multiples of 64 (the Python adapter pads), D in {32,64,128,256},
+// Sq and Sk multiples of 64 (the Python adapter pads), D in
+// {32,64,112,128,256} (each thread owns D/4 output columns),
 // f32 or bf16.  The entry point returns cudaGetLastError() after launching
 // on the caller's stream; it never synchronises and allocates nothing.
 
@@ -220,6 +221,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
                            window, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
+                            window, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
                             window, stream);

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel, launched by flash_attention's pallas_call) on the bf16
-// route at head dims 64 and 128; every other (dtype, head dim) goes to
+// route at head dims 64, 112 and 128; every other (dtype, head dim) goes to
 // flash_attention.cu (kernels/flash_attention.py::route decides).  It
 // computes the same function: softmax(q k^T / sqrt(D) + mask) v with the
 // mask k <= q (causal) and q - k < window, keys at positions >= kv_len
@@ -28,7 +28,12 @@
 // - Operands reach shared memory by TMA (cp.async.bulk.tensor, 4-d maps
 //   over [B, heads, S, D] views with any strides that are multiples of 16
 //   bytes), in 128-byte-swizzled panels of 64 rows x 64 bf16 columns: a
-//   D=128 tile is two panels.  K/V tiles go through a ring of two stages,
+//   D=128 tile is two panels.  D=112 (zamba2) runs on the D=128 code with
+//   tensor maps of inner extent 112: TMA fills columns 112-127 of the second
+//   panel with zeros on every load (the box still credits its full bytes to
+//   the barrier) and clips them on the output store.  Zero columns add
+//   nothing to Q K^T and give output columns that are never stored; the
+//   scale is 1/sqrt of the true D.  K/V tiles go through a ring of two stages,
 //   K and V of a stage each with an mbarrier (expect-tx bytes, then a wait
 //   on its phase), so Q K^T starts before V has landed; the loads of the
 //   next tile fly while this one's products run.  Each
@@ -600,10 +605,12 @@ bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// D is the code's panel width (64 or 128); d the tensors' head dim, at most
+// D, which sets the softmax scale.
 template <int D, int NWG>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk,
            const CUtensorMap& mv, const CUtensorMap& mo, int B, int H,
-           int KH, int Sq, int kv_len, int causal, int window,
+           int KH, int Sq, int d, int kv_len, int causal, int window,
            cudaStream_t stream) {
   constexpr int NP = D / PANEL;
   constexpr size_t smem = (size_t)(WGS + 2 * STAGES) * NP * PANEL_BYTES + 1024;
@@ -614,7 +621,7 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
   if (e != cudaSuccess) return (int)e;
   constexpr int QT = WGS / NWG;
   const dim3 grid(B * KH * ((H / KH) / NWG), (Sq / BM + QT - 1) / QT);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
   flash_fwd_sm90_kernel<D, NWG><<<grid, WGS * 128, smem, stream>>>(
       mq, mk, mv, mo, H, KH, Sq, kv_len, causal, window, scale_log2);
   return (int)cudaGetLastError();
@@ -625,14 +632,14 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
 template <int D>
 int dispatch(const CUtensorMap& mq, const CUtensorMap& mk,
              const CUtensorMap& mv, const CUtensorMap& mo, int B, int H,
-             int KH, int Sq, int kv_len, int causal, int window,
+             int KH, int Sq, int d, int kv_len, int causal, int window,
              cudaStream_t stream) {
   if ((H / KH) % 2 == 0) {
-    return launch<D, 2>(mq, mk, mv, mo, B, H, KH, Sq, kv_len, causal, window,
-                        stream);
+    return launch<D, 2>(mq, mk, mv, mo, B, H, KH, Sq, d, kv_len, causal,
+                        window, stream);
   }
-  return launch<D, 1>(mq, mk, mv, mo, B, H, KH, Sq, kv_len, causal, window,
-                      stream);
+  return launch<D, 1>(mq, mk, mv, mo, B, H, KH, Sq, d, kv_len, causal,
+                      window, stream);
 }
 
 bool aligned16(long long stride_elems) { return stride_elems % 8 == 0; }
@@ -644,7 +651,7 @@ extern "C" {
 // q: [B,H,Sq,D] and k/v: [B,KH,Sk,D] bf16 views given by their element
 // strides (batch, head, position; D contiguous; every stride and base
 // address a multiple of 16 bytes); o: a contiguous [B,Sq,H,D] bf16 buffer.
-// Sq and Sk are multiples of 64, D is 64 or 128.  Returns 0 on success,
+// Sq and Sk are multiples of 64, D is 64, 112 or 128.  Returns 0 on success,
 // else a cudaError_t code or one of the ERR_ codes above.  window <= 0
 // means none.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
@@ -657,7 +664,7 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   const long long strides[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   bool ok = B > 0 && H > 0 && KH > 0 && H % KH == 0 && Sq > 0 && Sk > 0 &&
             Sq % BM == 0 && Sk % BN == 0 && Sq / BM <= 65535 && kv_len >= 0 &&
-            kv_len <= Sk && (D == 64 || D == 128);
+            kv_len <= Sk && (D == 64 || D == 112 || D == 128);
   for (long long s : strides) ok = ok && aligned16(s);
   const void* ptrs[4] = {q, k, v, o};
   for (const void* p : ptrs) {
@@ -676,11 +683,12 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return dispatch<64>(mq, mk, mv, mo, B, H, KH, Sq, kv_len, causal, window,
-                        s);
+    return dispatch<64>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,
+                        window, s);
   }
-  return dispatch<128>(mq, mk, mv, mo, B, H, KH, Sq, kv_len, causal, window,
-                       s);
+  // D = 112 runs on the 128-column code, its second panel zero-filled
+  return dispatch<128>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,
+                       window, s);
 }
 
 const char* flash_attention_sm90_error_string(int code) {

@@ -7,13 +7,14 @@ the output in q's dtype.  A tensor on the CPU goes to the plain version
 of two kernels, by :func:`route`, a function of dtype and head dim alone
 decided before the launch:
 
-- ``"sm90"``: bf16 at D in ``SM90_HEAD_DIMS`` (64, 128) goes to
-  ``csrc/flash_attention_sm90.cu`` (bf16 ``wgmma`` fed by TMA).  It takes
-  q/k/v views with D contiguous and the other strides multiples of 16
-  bytes, and returns a [B,H,Sq,D] view of a [B,Sq,H,D] buffer;
-- ``"simt"``: every other pair (f32 at D 32/64/128/256, bf16 at 32 and
-  256) goes to ``csrc/flash_attention.cu`` (CUDA-core f32 products, as f32
-  parity at 2e-5 needs).  It takes contiguous q/k/v.
+- ``"sm90"``: bf16 at D in ``SM90_HEAD_DIMS`` (64, 112, 128) goes to
+  ``csrc/flash_attention_sm90.cu`` (bf16 ``wgmma`` fed by TMA; D=112 runs
+  on its 128-column code with the last 16 columns zero-filled by TMA).  It
+  takes q/k/v views with D contiguous and the other strides multiples of
+  16 bytes, and returns a [B,H,Sq,D] view of a [B,Sq,H,D] buffer;
+- ``"simt"``: every other pair (f32 at D 32/64/112/128/256, bf16 at 32
+  and 256) goes to ``csrc/flash_attention.cu`` (CUDA-core f32 products, as
+  f32 parity at 2e-5 needs).  It takes contiguous q/k/v.
 
 A failed build or launch on either route raises; no call is retried on
 the other kernel.
@@ -32,10 +33,10 @@ from repro_torch.kernels.ref import attention_ref
 #: q rows per tile and keys per KV tile in the kernel; Sq and Sk must be
 #: multiples of it (kernels/ops.flash_mha pads)
 BLOCK = 64
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the bf16 wgmma kernel takes
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 112, 128)
 ROUTES = ("sm90", "simt")
 
 #: kernel launches in this process, in all and by route; only CUDA calls

@@ -8,10 +8,14 @@ the state carried in f32; it returns y in x's dtype and the final state
 two kernels, by :func:`route`, a function of x's dtype, P, N and the chunk
 alone decided before the launch:
 
-- ``"sm90"``: bf16 x at P=64, N=128 and a chunk that is a multiple of 64
-  goes to ``csrc/ssd_scan_sm90.cu`` (``wgmma`` for every product, C Bᵀ
-  once per batch row for each pair of heads, the state update at f32
-  grade from hi/lo bf16 splits);
+- ``"sm90"``: bf16 x at P=64, N in ``SM90_STATES`` (64, 128) and a chunk
+  that is a multiple of 64 goes to ``csrc/ssd_scan_sm90.cu`` (``wgmma``
+  for every product, C Bᵀ once per batch row for each pair of heads, the
+  state update at f32 grade from hi/lo bf16 splits).  The kernel is built
+  for N=128; at N=64 the wrapper zero-pads B and C to 128 columns and
+  returns the first 64 state columns.  That is exact: zero B columns inject
+  nothing into state columns 64-127, which so stay zero from the zero
+  start, and zero C columns read nothing from them;
 - ``"simt"``: every other call (f32 x, which f32 parity at 2e-4 holds to
   f32 products, and bf16 at other P, N or chunks) goes to
   ``csrc/ssd_scan.cu`` (CUDA-core f32 products).
@@ -26,6 +30,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_ref
@@ -34,9 +39,11 @@ HEAD_DIMS = (16, 32, 64, 128)   # P
 MAX_STATE = 128                 # N
 MAX_CHUNK = 1024                # Q
 DTYPES = (torch.float32, torch.bfloat16)
-#: (P, N) the bf16 wgmma kernel takes, and the rows of its step: the chunk
-#: must be a multiple of it
+#: P and N the bf16 wgmma kernel is built for, and the rows of its step:
+#: the chunk must be a multiple of it
 SM90_HEAD_DIM, SM90_STATE, SM90_STEP = 64, 128, 64
+#: the N the sm90 route takes (N below SM90_STATE zero-padded to it)
+SM90_STATES = (64, SM90_STATE)
 ROUTES = ("sm90", "simt")
 
 #: kernel launches in this process, in all and by route; only CUDA calls
@@ -49,7 +56,7 @@ def route(dtype: torch.dtype, head_dim: int, state_dim: int,
           chunk: int) -> str:
     """The kernel a CUDA call of this x dtype, P, N and chunk goes to."""
     if (dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM
-            and state_dim == SM90_STATE and chunk % SM90_STEP == 0):
+            and state_dim in SM90_STATES and chunk % SM90_STEP == 0):
         return "sm90"
     return "simt"
 
@@ -127,6 +134,9 @@ def _launch(route_name: str, x: torch.Tensor, dt: torch.Tensor,
     global launches
     fn, err = _entry(route_name)
     bsz, s, h, p = x.shape
+    n_out = b_in.shape[-1]
+    if route_name == "sm90" and n_out < SM90_STATE:
+        b_in, c_in = (F.pad(t, (0, SM90_STATE - n_out)) for t in (b_in, c_in))
     n = b_in.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
@@ -141,4 +151,6 @@ def _launch(route_name: str, x: torch.Tensor, dt: torch.Tensor,
                            f"{err(rc).decode()} (code {rc})")
     launches += 1
     launches_by_route[route_name] += 1
+    if n > n_out:
+        state = state[..., :n_out].contiguous()
     return y, state

@@ -2,7 +2,7 @@
 ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch qwen3-0.6b | mamba2-2.7b]
+        [--arch qwen3-0.6b | mamba2-2.7b | zamba2-7b]
 
 Builds chip_smoke.py's serving configuration for the arch (full width,
 random bf16 weights from seed 0, ``attn_impl`` and ``ssm_impl`` "pallas",

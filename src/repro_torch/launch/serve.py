@@ -6,7 +6,8 @@
 
 Runs on the card (``--device cuda``, the default) on an H100 MIG backend,
 with the prefill on the hand-written kernels: flash attention for the
-dense models, the SSD chunk scan for mamba2 (``--arch mamba2-2.7b``).  With
+dense models, the SSD chunk scan for mamba2 (``--arch mamba2-2.7b``), both
+for the zamba2 hybrid (``--arch zamba2-7b``).  With
 ``--partition-gb`` the engine runs the time-series predictor against that
 slice size and performs the early restart (regrow to the profile the
 predictor asks for) when the converged peak estimate exceeds it.

@@ -1,10 +1,12 @@
-"""Unified model API over the families the port runs (dense, VLM, ssm).
+"""Unified model API over the families the port runs, routed by family as
+in the reference: the hybrid (zamba2) to :mod:`models.hybrid`, the dense,
+VLM and ssm stacks to :mod:`models.transformer`.
 
 A "batch" is a dict:
     tokens   [B, S] int             (all families)
     labels   [B, S] int             (training; -1 = masked)
     patches  [B, vision_tokens, d]  (VLM stub frontend)
-Other families (moe, hybrid, audio) raise NotImplementedError until their
+The other families (moe, audio) raise NotImplementedError until their
 slice is ported.
 """
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.models.transformer import DecoderOutput
 
 
@@ -25,26 +27,37 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
     device (or on ``device``; ``'meta'`` takes no generator)."""
     if device is None:
         device = generator.device if generator is not None else "cpu"
+    if cfg.family == "hybrid":
+        return hybrid.init_hybrid(generator, cfg, device)
     return transformer.init_decoder(generator, cfg, device)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> DecoderOutput:
+    if cfg.family == "hybrid":
+        return hybrid.forward(params, cfg, batch["tokens"])
     return transformer.forward(params, cfg, batch["tokens"],
                                extra_embeddings=batch.get("patches"))
 
 
 def init_caches(cfg: ModelConfig, batch: int, context: int,
                 device: str | torch.device = "cpu") -> dict:
+    if cfg.family == "hybrid":
+        return hybrid.init_caches(cfg, batch, context, device)
     return transformer.init_caches(cfg, batch, context, device)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 index: int, caches: dict) -> tuple[torch.Tensor, dict]:
+    if cfg.family == "hybrid":
+        return hybrid.decode_step(params, cfg, token, index, caches)
     return transformer.decode_step(params, cfg, token, index, caches)
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Forward over the prompt returning ONLY the last position's logits."""
+    if cfg.family == "hybrid":
+        return hybrid.forward(params, cfg, batch["tokens"],
+                              last_only=True).logits
     return transformer.forward(params, cfg, batch["tokens"],
                                extra_embeddings=batch.get("patches"),
                                last_only=True).logits
@@ -56,6 +69,8 @@ def prefill_caches(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     prompt batch that fills ``caches`` in place as a replay of the prompt
     through :func:`decode_step` would, returning (last logits [B,1,V],
     caches)."""
+    if cfg.family == "hybrid":
+        return hybrid.prefill(params, cfg, tokens, caches)
     return transformer.prefill(params, cfg, tokens, caches)
 
 

@@ -50,7 +50,8 @@ def _moved(before):
 @pytest.mark.parametrize("b,s,h,kh,d,causal,window", [
     (2, 256, 8, 4, 128, True, None), (1, 200, 4, 1, 64, True, 64),
     (1, 200, 2, 2, 64, False, None), (1, 128, 2, 2, 32, True, 32),
-    (1, 128, 2, 1, 256, True, None)])
+    (1, 128, 2, 1, 256, True, None), (2, 256, 4, 4, 112, True, None),
+    (1, 200, 2, 2, 112, True, None)])
 def test_kernel_matches_plain(card, dtype, b, s, h, kh, d, causal, window):
     rng = np.random.default_rng(s + h + d)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d),
@@ -61,7 +62,7 @@ def test_kernel_matches_plain(card, dtype, b, s, h, kh, d, causal, window):
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     # f32 at any D, and bf16 at D 32 and 256, go to the CUDA-core kernel
-    sm90 = dtype == torch.bfloat16 and d in (64, 128)
+    sm90 = dtype == torch.bfloat16 and d in (64, 112, 128)
     assert _moved(by_route) == {"sm90": int(sm90), "simt": int(not sm90)}
     ref = _bhsd(attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
                               window=window))
@@ -69,15 +70,19 @@ def test_kernel_matches_plain(card, dtype, b, s, h, kh, d, causal, window):
                                rtol=TOL[dtype])
 
 
-# (b, s, h, kh, d, causal, window): the bf16 wgmma kernel's cases, D 64 and
-# 128, GQA groups of 1, 2 and 8, causal, windows of 64 and 128, non-causal
-# ragged (the pad hidden by kv_len), S of 64, 200 (padded), 512 and 1024
+# (b, s, h, kh, d, causal, window): the bf16 wgmma kernel's cases, D 64,
+# 112 (on the 128-column code, the last 16 columns zero-filled) and 128,
+# GQA groups of 1, 2 and 8, causal, windows of 64 and 128, non-causal
+# ragged (the pad hidden by kv_len), S of 64, 200 (padded), 512 and 1024;
+# zamba2's prefill shape (MHA at D=112: one head over two q tiles a block)
 SM90_CASES = [
     (2, 512, 16, 8, 128, True, None), (1, 64, 2, 2, 64, True, None),
     (1, 200, 8, 1, 128, True, None), (2, 512, 4, 4, 64, True, 64),
     (1, 1024, 8, 1, 64, True, 128), (2, 200, 4, 2, 128, False, None),
     (1, 200, 2, 2, 64, False, None), (1, 1024, 16, 2, 128, True, None),
-    (1, 512, 8, 8, 128, True, 128), (2, 64, 16, 2, 64, False, None)]
+    (1, 512, 8, 8, 128, True, 128), (2, 64, 16, 2, 64, False, None),
+    (8, 512, 32, 32, 112, True, None), (1, 200, 4, 4, 112, True, None),
+    (2, 200, 4, 2, 112, False, None), (1, 512, 4, 4, 112, True, 128)]
 
 
 @pytest.mark.cuda
@@ -169,7 +174,8 @@ def _ssd_inputs(card, dtype, b, s, h, p, n, seed):
     (2, 512, 4, 64, 128, 256), (1, 200, 3, 64, 128, 256),
     (1, 512, 2, 64, 128, 64), (1, 100, 2, 64, 128, 256),
     (2, 128, 1, 64, 128, 256), (1, 128, 2, 128, 16, 32),
-    (1, 96, 2, 16, 8, 32), (1, 256, 2, 32, 100, 128)])
+    (1, 96, 2, 16, 8, 32), (1, 256, 2, 32, 100, 128),
+    (2, 512, 4, 64, 64, 256), (1, 200, 3, 64, 64, 64)])
 def test_ssd_kernel_matches_plain(card, dtype, b, s, h, p, n, chunk):
     """y and the final state of the kernel against the sequential plain
     version, on the same inputs (padded S, partial chunks, P and N of the
@@ -213,6 +219,68 @@ def test_sm90_ssd_kernel_matches_plain(card, b, s, h, chunk):
     tol = SSD_TOL[torch.bfloat16]
     torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+# (b, s, h, chunk): the sm90 route at N=64 (B and C zero-padded to the
+# kernel's 128, the state cut back): zamba2's prefill shape, chunk 64, odd
+# H, ragged S
+SM90_SSD_N64_CASES = [(8, 512, 112, 256), (2, 512, 4, 64), (1, 256, 3, 128),
+                      (2, 200, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,chunk", SM90_SSD_N64_CASES)
+def test_sm90_ssd_kernel_at_state_64_matches_plain(card, b, s, h, chunk):
+    args = _ssd_inputs(card, torch.bfloat16, b, s, h, 64, 64,
+                       5 * s + h + chunk)
+    before = dict(ssd.launches_by_route)
+    y, state = ssd_mixer(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {r: ssd.launches_by_route[r] - before[r] for r in before} == {
+        "sm90": 1, "simt": 0}
+    y_ref, state_ref = ssd_ref(*args)
+    assert y.dtype == torch.bfloat16 and y.shape == (b, s, h, 64)
+    assert state.shape == (b, h, 64, 64) and state.is_contiguous()
+    tol = SSD_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_hybrid_prefill_on_sm90_kernels_matches_plain_path(card):
+    """zamba2's smoke config at zamba2's own head dims (MHA at D=112, P=64,
+    N=64, chunk 64; 5 layers, a shared block after every 2), bf16 weights:
+    the prefill makes one sm90 flash launch per shared-block application
+    and one sm90 SSD launch per Mamba2 layer, none on simt, and its last
+    logits stay within 5e-2 of the plain path's (relative to the largest
+    logit).  With qk-norm: without it the random init's scores are in the
+    hundreds, where the plain path (like the reference's) rounds q k^T to
+    bf16 steps of ~1 before the softmax, and so is no measure of the
+    kernel (chip_smoke.py holds zamba2's own blocks one by one)."""
+    cfg = dataclasses.replace(
+        get_smoke_config("zamba2-7b"), n_layers=5, attn_every=2,
+        d_model=224, n_heads=2, n_kv_heads=2, head_dim=112, d_ff=448,
+        ssm_heads=7, ssm_state=64, ssm_chunk=64, qk_norm=True)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = registry.init_params(gen, cfg)[0]
+    tokens = registry.make_dummy_batch(cfg, 3, 200, seed=1,
+                                       device=card)["tokens"]
+    out = {}
+    with torch.inference_mode():
+        for impl in ("xla", "pallas"):
+            c = dataclasses.replace(cfg, attn_impl=impl, ssm_impl=impl)
+            caches = registry.init_caches(c, 3, 256, card)
+            fa_before = _route_counts()
+            ssd_before = dict(ssd.launches_by_route)
+            out[impl], _ = registry.prefill_caches(params, c, tokens, caches)
+            on = impl == "pallas"
+            assert _moved(fa_before) == {"sm90": 2 * on, "simt": 0}
+            assert {r: ssd.launches_by_route[r] - ssd_before[r]
+                    for r in ssd_before} == {"sm90": 5 * on, "simt": 0}
+    assert bool(torch.isfinite(out["pallas"]).all())
+    err = ((out["pallas"].float() - out["xla"].float()).abs().max()
+           / out["xla"].float().abs().max())
+    assert float(err) < 5e-2, float(err)
 
 
 @pytest.mark.cuda

@@ -26,9 +26,11 @@ BF16_TOL = 2e-2  # tests/test_kernels.py:52
 # the routing table the wrapper's docstring states
 WANT_ROUTE = {
     (torch.float32, 32): "simt", (torch.float32, 64): "simt",
-    (torch.float32, 128): "simt", (torch.float32, 256): "simt",
+    (torch.float32, 112): "simt", (torch.float32, 128): "simt",
+    (torch.float32, 256): "simt",
     (torch.bfloat16, 32): "simt", (torch.bfloat16, 64): "sm90",
-    (torch.bfloat16, 128): "sm90", (torch.bfloat16, 256): "simt",
+    (torch.bfloat16, 112): "sm90", (torch.bfloat16, 128): "sm90",
+    (torch.bfloat16, 256): "simt",
 }
 
 
@@ -63,6 +65,9 @@ CASES = [
     ("bf16-d32-simt", 1, 128, 2, 2, 32, "bf16", None),
     ("f32-d64-simt", 2, 128, 4, 4, 64, "f32", None),
     ("f32-d128-ragged-s70", 1, 70, 2, 1, 128, "f32", 64),
+    # zamba2's head dim, MHA: bf16 on the sm90 route, f32 on simt
+    ("bf16-d112-mha-ragged-s100", 2, 100, 2, 2, 112, "bf16", None),
+    ("f32-d112-mha-simt", 1, 128, 2, 2, 112, "f32", None),
 ]
 
 

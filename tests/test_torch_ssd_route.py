@@ -30,12 +30,14 @@ STATE_TOL = 2e-4    # the final state, f32 in both dtypes (test_kernels.py:99)
 STEP = 64           # rows of the sm90 kernel's step
 
 # The classes of call the wrapper takes: every P it takes, N at the sm90
-# kernel's 128 and off it, chunks that are multiples of 64 and one that is
-# not.  The sm90 kernel takes bf16 x at P=64, N=128 and a chunk that is a
-# multiple of 64; everything else goes to the CUDA-core kernel.
-SM90 = {(torch.bfloat16, 64, 128, q) for q in (64, 128, 256, 1024)}
+# route's 64 (zamba2, zero-padded to 128) and 128 (mamba2) and off them,
+# chunks that are multiples of 64 and one that is not.  The sm90 route
+# takes bf16 x at P=64, N 64 or 128 and a chunk that is a multiple of 64;
+# everything else goes to the CUDA-core kernel.
+SM90 = {(torch.bfloat16, 64, n, q) for n in (64, 128)
+        for q in (64, 128, 256, 1024)}
 CLASSES = [(dt, p, n, q) for dt in ssd.DTYPES for p in ssd.HEAD_DIMS
-           for n in (16, 100, 128) for q in (32, 64, 128, 256, 1024)]
+           for n in (16, 64, 100, 128) for q in (32, 64, 128, 256, 1024)]
 
 
 def test_routing_table_covers_what_the_wrapper_takes():
@@ -126,37 +128,46 @@ def emulate_sm90(x, dt, a, b_in, c_in, split_state=True):
     return torch.cat(ys, dim=1), state
 
 
+def pad_state(b_in, c_in):
+    """The sm90 wrapper's padding of B and C to the kernel's N=128."""
+    n = b_in.shape[-1]
+    return (torch.nn.functional.pad(t, (0, ssd.SM90_STATE - n))
+            for t in (b_in, c_in))
+
+
 def emulate_mixer(x, dt, a, b_in, c_in, chunk):
     """ssd_mixer's padding (dt = 0 and zero x, b, c up to a chunk
-    multiple) around the emulated kernel."""
-    s = x.shape[1]
+    multiple) and the sm90 wrapper's (B and C to N=128, the state cut back)
+    around the emulated kernel."""
+    s, n = x.shape[1], b_in.shape[-1]
     pad = (-s) % chunk
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
         b_in = torch.nn.functional.pad(b_in, (0, 0, 0, pad))
         c_in = torch.nn.functional.pad(c_in, (0, 0, 0, pad))
-    y, state = emulate_sm90(x, dt, a, b_in, c_in)
-    return y[:, :s], state
+    y, state = emulate_sm90(x, dt, a, *pad_state(b_in, c_in))
+    return y[:, :s], state[..., :n]
 
 
 def _jax(t):
     return jnp.asarray(t.float().numpy())
 
 
-# (name, B, S, H, chunk, B and C bf16-exact): P=64, N=128 throughout
+# (name, B, S, H, chunk, B and C bf16-exact, N): P=64 throughout
 CASES = [
-    ("random-bc-s192-q64", 2, 192, 2, 64, False),
-    ("model-bc-s256-q128", 1, 256, 2, 128, True),
-    ("ragged-s100-q128-h1", 1, 100, 1, 128, False),
+    ("random-bc-s192-q64", 2, 192, 2, 64, False, 128),
+    ("model-bc-s256-q128", 1, 256, 2, 128, True, 128),
+    ("ragged-s100-q128-h1", 1, 100, 1, 128, False, 128),
+    ("zamba2-n64-s256-q256-h3", 1, 256, 3, 256, True, 64),
 ]
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_sm90_numerics_match_reference_oracle_and_kernel(case):
-    name, b, s, h, chunk, bc_bf16 = case
-    args = _inputs(len(name) + s, b, s, h, 64, 128, bc_bf16)
-    assert ssd.route(args[0].dtype, 64, 128, chunk) == "sm90"
+    name, b, s, h, chunk, bc_bf16, n = case
+    args = _inputs(len(name) + s, b, s, h, 64, n, bc_bf16)
+    assert ssd.route(args[0].dtype, 64, n, chunk) == "sm90"
     y, state = emulate_mixer(*args, chunk=chunk)
     assert y.dtype == torch.bfloat16 and y.shape == args[0].shape
     jargs = [_jax(t) for t in args]
@@ -170,6 +181,23 @@ def test_sm90_numerics_match_reference_oracle_and_kernel(case):
     np.testing.assert_allclose(y.float().numpy(),
                                np.asarray(y_kernel.astype(jnp.float32)),
                                atol=Y_TOL, rtol=Y_TOL)
+
+
+def test_zero_padding_b_and_c_to_the_kernel_state_is_exact():
+    """Why the sm90 route may run N=64 on the N=128 kernel: on B and C
+    zero-padded to 128 columns the plain version gives the unpadded call's
+    y and first 64 state columns, to f32 rounding, and exactly zero in
+    state columns 64-127 (zero B injects nothing there, zero C reads
+    nothing from there)."""
+    x, dt, a, b_in, c_in = _inputs(5, 2, 96, 3, 64, 64)
+    x = x.float()
+    y, state = ssd_ref(x, dt, a, b_in, c_in)
+    y_pad, state_pad = ssd_ref(x, dt, a, *pad_state(b_in, c_in))
+    assert state_pad.shape == (2, 3, 64, ssd.SM90_STATE)
+    assert not state_pad[..., 64:].any()
+    torch.testing.assert_close(state_pad[..., :64], state, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(y_pad, y, rtol=1e-6, atol=1e-6)
 
 
 def test_one_bf16_product_would_miss_the_state_limit():
