@@ -34,7 +34,16 @@ Phases, each raising on failure (the script then exits non-zero):
    mixer and shared attention) kernel vs plain, one by one, on f32 weights
    (both "simt" kernels) and on bf16 weights (both "sm90" kernels), and
    the f32 last logits printed beside; then the f32 smoke config's greedy
-   tokens on both paths.
+   tokens on both paths;
+6. training, on the plain path (the kernels have no backward and refuse
+   autograd): (a) qwen3-0.6b at full width, bf16 params and f32 moments,
+   8 steps of B=8, S=512 through make_train_step as launch/train.py runs
+   them, with each step's loss, grad norm and ms, tokens/s and peak
+   memory; the kernels' launch counts must not move; the final state
+   saved and loaded through training/checkpoint.py must come back bit for
+   bit; (b) the three smoke configs in f32, 3 steps on the card against
+   the same steps on the CPU, loss and grad norm within 1e-4; (c) both
+   kernels, on both routes, raise when an input requires grad.
 
 Each phase prints its host seconds as it ends.  The script prints a JSON
 line of kernel results, the card line, and last ``{"ok": true, "device":
@@ -45,7 +54,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -838,6 +849,215 @@ def phase_restart(cfg, params) -> list[str]:
     return restarts
 
 
+#: phase 6a: qwen3-0.6b's training run, as launch/train.py would make it
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+#: steps timed for tokens/s (the first two warm cuBLAS and the allocator)
+TRAIN_TIMED = slice(2, 8)
+#: phase 6b: f32 smoke steps on the card against the CPU (the limit of
+#: tests/test_torch_training.py's traces against the reference)
+PARITY_STEPS, PARITY_BATCH, PARITY_SEQ, PARITY_REL = 3, 2, 64, 1e-4
+#: zamba2's random init puts its shared attention's scores in the hundreds,
+#: where a change of sum order alone moves its gradient by ~1e-4; its
+#: parity trace scales wq and wk by this factor to bring them to O(1)
+#: (tests/test_torch_training.py::ZAMBA2_QK_SCALE gives the measurements)
+ZAMBA2_QK_SCALE = 0.1
+
+
+def same_bits(torch, a, b) -> bool:
+    with torch.no_grad():
+        return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def phase_train(torch, counters) -> dict:
+    """6a: qwen3-0.6b at full width through make_train_step, the kernels'
+    launch counts set to 0 just before and read just after; then a save
+    and load of the final state through training/checkpoint.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import param_count, tree_leaves
+    from repro_torch.training.checkpoint import (flatten, load_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(gen, cfg)
+    start = [p.detach().clone() for p in tree_leaves(state["params"])]
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                               total_steps=TRAIN_STEPS))
+    batches = SyntheticLM(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED),
+                          "cuda").batches()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    steps = []
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        state, metrics = step_fn(state, batch)
+        ev1.record()
+        torch.cuda.synchronize()
+        rec = {"step": i, "ms": ev0.elapsed_time(ev1),
+               "wall_ms": (time.perf_counter() - t0) * 1e3,
+               **{k: float(v) for k, v in metrics.items()}}
+        steps.append(rec)
+        print(f"[train] {cfg.name} step {i}: loss {rec['loss']:.4f} grad "
+              f"norm {rec['grad_norm']:.4f} lr {rec['lr']:.2e} "
+              f"{rec['ms']:.2f} ms (CUDA events; host {rec['wall_ms']:.2f} "
+              f"ms)", flush=True)
+        if not (math.isfinite(rec["loss"])
+                and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"training step {i}: non-finite {rec}")
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    if all(torch.equal(a, b) for a, b in zip(start,
+                                             tree_leaves(state["params"]))):
+        raise AssertionError("training left every param unchanged")
+    del start
+    timed = steps[TRAIN_TIMED]
+    stats = {
+        "arch": cfg.name, "params": param_count(state["params"]),
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "ms_per_step": [r["ms"] for r in steps],
+        "timed_steps": [r["step"] for r in timed],
+        "tokens_per_s": (TRAIN_BATCH * TRAIN_SEQ * len(timed)
+                         / (sum(r["ms"] for r in timed) / 1e3)),
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+        / 2**30,
+        "launches": launches,
+    }
+    print(f"[train] {cfg.name}: {stats['params']} params, tokens/s over "
+          f"steps {stats['timed_steps'][0]}-{stats['timed_steps'][-1]}: "
+          f"{stats['tokens_per_s']:.1f}, max_memory_allocated "
+          f"{stats['max_memory_allocated_gib']:.3f} GiB, kernel launches "
+          f"{launches}", flush=True)
+
+    path = ROOT / "build" / "chip_smoke" / "train_state.npz"
+    t0 = time.perf_counter()
+    try:
+        save_checkpoint(str(path), state, step=TRAIN_STEPS)
+        loaded = load_checkpoint(str(path), state)
+    finally:
+        for f in (path, Path(str(path) + ".manifest.json")):
+            f.unlink(missing_ok=True)
+    want, got = flatten(state), flatten(loaded)
+    if sorted(want) != sorted(got) or not all(
+            same_bits(torch, want[k], got[k]) for k in want):
+        raise AssertionError("checkpoint save/load is not bitwise")
+    stats["checkpoint_s"] = time.perf_counter() - t0
+    print(f"[train] checkpoint of the final state ({len(want)} arrays) "
+          f"saved and loaded bit for bit in {stats['checkpoint_s']:.1f} s",
+          flush=True)
+    print(f"[train] {json.dumps(stats)}", flush=True)
+    return stats
+
+
+def phase_train_parity(torch) -> dict:
+    """6b: each smoke config in f32, PARITY_STEPS steps from one initial
+    state on the card and on the CPU; loss and grad norm within
+    PARITY_REL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry
+    from repro_torch.models.module import cast_tree, tree_map
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    worst = {}
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+        cfg = get_smoke_config(arch)
+        params = cast_tree(registry.init_params(
+            torch.Generator().manual_seed(SEED), cfg)[0], torch.float32)
+        if cfg.family == "hybrid":
+            for key in ("wq", "wk"):
+                params["shared_attn"][key] *= ZAMBA2_QK_SCALE
+        step_fn = make_train_step(cfg, AdamWConfig(
+            lr=1e-3, warmup_steps=1, total_steps=PARITY_STEPS))
+        trace = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(),
+                         params)
+            state = {"params": p, "opt": init_opt_state(p)}
+            batches = SyntheticLM(cfg, DataConfig(PARITY_BATCH, PARITY_SEQ,
+                                                  SEED), dev).batches()
+            trace[dev] = []
+            for _ in range(PARITY_STEPS):
+                state, m = step_fn(state, next(batches))
+                trace[dev].append({k: float(m[k])
+                                   for k in ("loss", "grad_norm")})
+        worst[arch] = max(abs(g[k] - c[k]) / abs(c[k])
+                          for c, g in zip(trace["cpu"], trace["cuda"])
+                          for k in c)
+        print(f"[train] {arch} smoke f32, {PARITY_STEPS} steps, card vs "
+              f"CPU: loss {[r['loss'] for r in trace['cuda']]} vs "
+              f"{[r['loss'] for r in trace['cpu']]}, max rel err of loss "
+              f"and grad norm {worst[arch]:.3e} (tol {PARITY_REL})",
+              flush=True)
+        if not worst[arch] <= PARITY_REL:
+            raise AssertionError(f"{arch}: card and CPU training disagree "
+                                 f"(rel {worst[arch]})")
+    return worst
+
+
+def phase_refusal(torch, fa, ssd) -> None:
+    """6c: both kernels, on both routes, refuse an input that requires
+    grad, before any launch; the same call without grad launches on the
+    route."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    for mod, route, dtype in ((fa, "sm90", torch.bfloat16),
+                              (fa, "simt", torch.float32),
+                              (ssd, "sm90", torch.bfloat16),
+                              (ssd, "simt", torch.float32)):
+        if mod is fa:
+            args = [rnd(1, 2, 64, 128).to(dtype) for _ in range(3)]
+            call = functools.partial(fa.flash_attention, *args)
+        else:
+            args = [rnd(1, 64, 2, 64).to(dtype), rnd(1, 64, 2).abs(),
+                    -rnd(2).abs(), rnd(1, 64, 128), rnd(1, 64, 128)]
+            call = functools.partial(ssd.ssd_scan, *args, chunk=64)
+        name = mod.__name__.rsplit(".", 1)[-1]
+        for which in range(len(args)):
+            args[which].requires_grad_()
+            before = dict(mod.launches_by_route)
+            try:
+                call()
+            except RuntimeError as err:
+                if "no backward" not in str(err):
+                    raise
+            else:
+                raise AssertionError(f"{name} ({route}) ran on input "
+                                     f"{which} that requires grad")
+            if mod.launches_by_route != before:
+                raise AssertionError(f"{name} ({route}) launched before "
+                                     f"refusing")
+            args[which].requires_grad_(False)
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        moved = {r: mod.launches_by_route[r] - before[r] for r in before}
+        if moved != {r: int(r == route) for r in mod.ROUTES}:
+            raise AssertionError(f"{name} without grad: launches {moved}, "
+                                 f"want one on {route}")
+        print(f"[train] {name} ({route}): refuses each of its {len(args)} "
+              f"inputs when it requires grad, launches without", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -931,6 +1151,13 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         phase_smoke_tokens(torch, HYBRID_ARCH, ("attn_impl", "ssm_impl"))
+
+    # 6. training on the plain path: full-width qwen3, card vs CPU parity,
+    # and the kernels' refusal of autograd
+    with clock("6 training"):
+        phase_train(torch, counters)
+        phase_train_parity(torch)
+        phase_refusal(torch, fa, ssd)
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
     print(json.dumps({"kernels": [*flash, *scan]}), flush=True)

@@ -12,32 +12,14 @@ is needed: the reference package is never imported.
 
 from __future__ import annotations
 
-import json
 from typing import Any, Mapping
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
-
-SEP = "/"
-
-
-def to_tensor(arr: Any, device: str | torch.device = "cpu",
-              dtype_name: str | None = None) -> torch.Tensor:
-    """One numpy array as a tensor; ``dtype_name='bfloat16'`` marks 16-bit
-    integer storage of bf16 values (the checkpoint format)."""
-    arr = np.ascontiguousarray(np.asarray(arr))
-    if not arr.flags.writeable:  # jax.device_get hands out read-only views
-        arr = arr.copy()
-    if arr.dtype.name == "bfloat16" or dtype_name == "bfloat16":
-        if arr.dtype.itemsize != 2:
-            raise TypeError(f"bf16 storage must be 2 bytes, got {arr.dtype}")
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device)
+from repro_torch.models.module import tree_map
+from repro_torch.training.checkpoint import SEP, read_checkpoint, to_tensor
 
 
 def _nest(flat: Mapping[str, Any]) -> dict:
@@ -97,15 +79,29 @@ def caches_from_numpy(tree: Mapping, cfg: ModelConfig, batch: int,
     return _from_numpy(tree, expected, device)
 
 
+def state_from_numpy(tree: Mapping, cfg: ModelConfig,
+                     device: str | torch.device = "cpu") -> dict:
+    """A reference train state (``jax.device_get`` of ``{"params", "opt":
+    {"m", "v", "step"}}``) -> the port's train state: params that require
+    grad, the moments in their own dtype, ``step`` an int32 scalar."""
+    expected, _ = registry.init_params(None, cfg, device="meta")
+    params = tree_map(lambda p: p.requires_grad_(),
+                      _from_numpy(tree["params"], expected, device))
+    opt = tree["opt"]
+    return {"params": params, "opt": {
+        "m": _from_numpy(opt["m"], expected, device),
+        "v": _from_numpy(opt["v"], expected, device),
+        "step": to_tensor(opt["step"], device),
+    }}
+
+
 def load_npz_params(path: str, cfg: ModelConfig,
                     device: str | torch.device = "cpu") -> dict:
-    """Params from a reference checkpoint (``save_checkpoint``'s npz plus
-    its ``.manifest.json``), whose state holds them under ``params``."""
-    with open(path + ".manifest.json") as f:
-        dtypes = json.load(f)["dtypes"]
+    """Params from a checkpoint of either package
+    (:func:`repro_torch.training.checkpoint.save_checkpoint`'s npz plus its
+    ``.manifest.json``), whose state holds them under ``params``."""
+    flat, dtypes, _ = read_checkpoint(path)
     prefix = "params" + SEP
-    with np.load(path) as npz:
-        flat = {k.replace("__", SEP): npz[k] for k in npz.files}
     flat = {k[len(prefix):]: v for k, v in flat.items()
             if k.startswith(prefix)}
     dtypes = {k[len(prefix):]: v for k, v in dtypes.items()

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.ref import attention_ref
 
 #: q rows per tile and keys per KV tile in the kernel; Sq and Sk must be
@@ -124,10 +124,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,H,Sq,D]; k/v: [B,KH,Sk,D] -> [B,H,Sq,D] in q's dtype.
 
     Keys at positions >= ``kv_len`` (default Sk) are hidden.  On the sm90
-    route the result is a view of a [B,Sq,H,D] buffer.
+    route the result is a view of a [B,Sq,H,D] buffer.  Raises
+    RuntimeError, on every device, when grad is enabled and an input
+    requires grad: there is no backward.
     """
     kv_len = k.shape[2] if kv_len is None else kv_len
     _check(q, k, v, window, kv_len)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              kv_len=kv_len)

@@ -32,7 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.ref import ssd_ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # P
@@ -114,8 +114,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,H,P]; dt: [B,S,H] (post-softplus); a: [H] (< 0);
     b_in/c_in: [B,S,N] -> (y [B,S,H,P] in x's dtype, final state
-    [B,H,P,N] f32).  S must be a multiple of ``chunk``."""
+    [B,H,P,N] f32).  S must be a multiple of ``chunk``.  Raises
+    RuntimeError, on every device, when grad is enabled and an input
+    requires grad: there is no backward."""
     _check(x, dt, a, b_in, c_in, chunk)
+    refuse_grad("ssd_scan", x, dt, a, b_in, c_in)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a, b_in, c_in)
     if x.device.type != "cuda":

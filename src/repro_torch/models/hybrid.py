@@ -23,7 +23,8 @@ from repro_torch.models.layers import (embed_tokens, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm)
 from repro_torch.models.module import ParamBuilder
 from repro_torch.models.transformer import (DecoderOutput, _head,
-                                            init_rmsnorm_stacked)
+                                            init_rmsnorm_stacked,
+                                            layer_views, remat_layer)
 
 #: mixer(layer params, normed x, stack name, index in the stack) -> output
 Mixer = Callable[[dict, torch.Tensor, str, int], torch.Tensor]
@@ -67,22 +68,32 @@ def walk(params: dict, cfg: ModelConfig, x: torch.Tensor, mixer: Mixer,
          attend: Attend) -> torch.Tensor:
     """The residual stream through the stack: each group's Mamba2 layers
     (stack ``"ssm"``, index g * attn_every + j), then the shared attention
-    and MLP block; then the tail's layers (stack ``"ssm_tail"``)."""
+    and MLP block; then the tail's layers (stack ``"ssm_tail"``).  Each
+    Mamba2 layer and each application of the shared block is checkpointed
+    while autograd records (:func:`remat_layer`), as the reference remats
+    its ``mamba_block`` and ``group_body``."""
     n_groups, remainder = _group_shape(cfg)
     m = max(cfg.attn_every, 1)
     shared, eps = params["shared_attn"], cfg.norm_eps
+    group_layers = layer_views(params["mamba_layers"])
+    tail_layers = layer_views(params["mamba_tail"]) if remainder else []
 
-    def mamba(x, stack, name, i):
-        lp = {k: v[i] for k, v in params[stack].items()}
+    @remat_layer
+    def mamba(x, lp, name, i):
         return x + mixer(lp, rmsnorm(x, lp["norm1"], eps), name, i)
+
+    @remat_layer
+    def shared_block(x, g):
+        x = x + attend(rmsnorm(x, shared["norm1"], eps), g)
+        return x + mlp(shared, rmsnorm(x, shared["norm2"], eps), cfg)
 
     for g in range(n_groups):
         for j in range(m):
-            x = mamba(x, "mamba_layers", "ssm", g * m + j)
-        x = x + attend(rmsnorm(x, shared["norm1"], eps), g)
-        x = x + mlp(shared, rmsnorm(x, shared["norm2"], eps), cfg)
-    for i in range(remainder):
-        x = mamba(x, "mamba_tail", "ssm_tail", i)
+            i = g * m + j
+            x = mamba(x, group_layers[i], "ssm", i)
+        x = shared_block(x, g)
+    for i, lp in enumerate(tail_layers):
+        x = mamba(x, lp, "ssm_tail", i)
     return x
 
 

@@ -1,4 +1,5 @@
-"""Shared neural layers: RMSNorm, RoPE, embeddings, gated MLPs."""
+"""Shared neural layers: RMSNorm, RoPE, embeddings, gated MLPs and the
+cross-entropy loss."""
 
 from __future__ import annotations
 
@@ -65,16 +66,40 @@ def init_embedding(b: ParamBuilder, cfg: ModelConfig) -> None:
         b.add("unembed", (cfg.d_model, pv), ("embed", "vocab"))
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums each row's gradient in f32 and
+    rounds it to the table's dtype once, as the reference's one-hot
+    contraction does in its f32 accumulator.  Indexing's own backward
+    accumulates in the table's dtype, so a token repeated across a bf16
+    batch would collect one rounding per repeat."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (tokens,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                          device=grad.device)
+        acc.index_add_(0, tokens.reshape(-1),
+                       grad.reshape(-1, grad.shape[-1]).float())
+        return acc.to(ctx.table_dtype), None
+
+
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Row lookup for both ``embed_impl`` values.
 
     The reference's ``onehot`` contracts a one-hot matrix with the table;
     each output element is then 1*x plus exact zeros, so the lookup gives
-    the same bits without the [B, S, vocab] one-hot.
+    the same bits without the [B, S, vocab] one-hot, and its gradient is
+    summed in f32 as the contraction's is (:class:`_Lookup`).
     """
     table = params["embedding"]
-    x = table[tokens.long()]
+    x = _Lookup.apply(table, tokens.long())
     if cfg.family in ("dense", "vlm"):  # gemma-style sqrt(d) scaling
         # the scale rounded to the table's dtype first, as the reference
         # does; a Python scalar keeps the multiply free of a host copy
@@ -109,3 +134,27 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:  # geglu and gelu both gate with tanh-approximated gelu
         act = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
     return torch.matmul(act * up, params["w_down"])
+
+
+# -- Loss --------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab: int) -> torch.Tensor:
+    """Mean CE over valid (label >= 0) positions; padded vocab masked out.
+
+    Computed in f32, the padded columns (>= ``vocab``) pushed down by 1e9
+    as in the reference.  The gold logit is gathered where the reference
+    contracts a one-hot (a form it keeps for SPMD partitioning); the sum of
+    the one-hot products is that one logit plus exact zeros, so the values
+    agree.
+    """
+    logits = logits.float()
+    pv = logits.shape[-1]
+    if pv > vocab:
+        vocab_ids = torch.arange(pv, device=logits.device)
+        logits = logits + torch.where(vocab_ids >= vocab, -1e9, 0.0)
+    valid = labels >= 0
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)

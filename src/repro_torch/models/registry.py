@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, transformer
+from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.models.transformer import DecoderOutput
 
 
@@ -37,6 +38,15 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> DecoderOutput:
         return hybrid.forward(params, cfg, batch["tokens"])
     return transformer.forward(params, cfg, batch["tokens"],
                                extra_embeddings=batch.get("patches"))
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            aux_weight: float = 0.01) -> tuple[torch.Tensor, DecoderOutput]:
+    """The training loss: mean next-token CE over the batch's ``labels``
+    plus ``aux_weight`` times the model's auxiliary loss."""
+    out = forward(params, cfg, batch)
+    ce = cross_entropy_loss(out.logits, batch["labels"], cfg.vocab)
+    return ce + aux_weight * out.aux_loss, out
 
 
 def init_caches(cfg: ModelConfig, batch: int, context: int,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -59,8 +60,28 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"n_experts={cfg.n_experts})")
 
 
-def _layer(params: dict, i: int) -> dict:
-    return {k: v[i] for k, v in params["layers"].items()}
+def layer_views(stack: dict) -> list[dict]:
+    """Each layer's params of a stacked tree (leading ``layers`` axis), as
+    views.  ``unbind`` splits every leaf once, so a backward stacks the
+    layers' gradients in one op, where indexing layer by layer would give
+    each layer's gradient as a zero-filled copy of the whole stack."""
+    per_key = {k: v.unbind(0) for k, v in stack.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+
+
+def remat_layer(fn):
+    """Per-layer activation checkpointing, as the reference's
+    ``remat_layer`` (``jax.checkpoint``): while autograd records, only the
+    layer's inputs are saved and the rest is recomputed in backward.  With
+    grad disabled (prefill, serving) the layer runs as it is."""
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the layers draw no random numbers, so no RNG state is kept
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
 
 
 @dataclasses.dataclass
@@ -118,18 +139,26 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check_supported(cfg)
     b_, s = tokens.shape
     x = _embed(params, cfg, tokens, extra_embeddings)
+    layers = layer_views(params["layers"])
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            lp = _layer(params, i)
-            x = x + ssm_lib.ssm_forward(
-                lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg)
+        @remat_layer
+        def ssm_body(h, lp):
+            return h + ssm_lib.ssm_forward(
+                lp, rmsnorm(h, lp["norm1"], cfg.norm_eps), cfg)
+
+        for lp in layers:
+            x = ssm_body(x, lp)
     else:
         positions = torch.arange(s, device=x.device).expand(b_, s)
-        for i, (window, chunk) in enumerate(_layer_masks(cfg)):
-            lp = _layer(params, i)
-            x = x + attn.mha_full(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
+
+        @remat_layer
+        def body(h, lp, window, chunk):
+            h = h + attn.mha_full(lp, rmsnorm(h, lp["norm1"], cfg.norm_eps),
                                   cfg, positions, window=window, chunk=chunk)
-            x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+            return h + mlp(lp, rmsnorm(h, lp["norm2"], cfg.norm_eps), cfg)
+
+        for lp, (window, chunk) in zip(layers, _layer_masks(cfg)):
+            x = body(x, lp, window, chunk)
     if last_only:
         x = x[:, -1:]
     return DecoderOutput(logits=_head(params, cfg, x),
@@ -159,15 +188,15 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, extra_embeddings)
+    layers = layer_views(params["layers"])
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            lp = _layer(params, i)
+        for i, lp in enumerate(layers):
             x = x + ssm_lib.ssm_prefill(
                 lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg,
                 caches["ssm"]["conv"][i], caches["ssm"]["state"][i])
         return _head(params, cfg, x[:, -1:]), caches
     for i, (window, chunk) in enumerate(_layer_masks(cfg)):
-        lp = _layer(params, i)
+        lp = layers[i]
         x = x + attn.mha_prefill(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
                                  cfg, caches["k"][i], caches["v"][i],
                                  window=window, chunk=chunk)
@@ -197,10 +226,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     with the caches updated in place."""
     _check_supported(cfg)
     x = embed_tokens(params, token, cfg)
+    layers = layer_views(params["layers"])
     if cfg.family == "ssm":
         conv, state = caches["ssm"]["conv"], caches["ssm"]["state"]
-        for i in range(cfg.n_layers):
-            lp = _layer(params, i)
+        for i, lp in enumerate(layers):
             out, conv_i, state_i = ssm_lib.ssm_decode_step(
                 lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), conv[i],
                 state[i], cfg)
@@ -209,7 +238,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             x = x + out
         return _head(params, cfg, x), caches
     for i, (window, chunk) in enumerate(_layer_masks(cfg)):
-        lp = _layer(params, i)
+        lp = layers[i]
         out, _, _ = attn.mha_decode(
             lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg, caches["k"][i],
             caches["v"][i], index, window=window, chunk=chunk)

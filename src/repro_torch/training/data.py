@@ -1,0 +1,78 @@
+"""Deterministic synthetic data pipeline (own copy of the reference's
+``repro/training/data.py`` generator).
+
+Token batches come from a Zipf-ish bigram stream with local structure, so
+the loss actually decreases, plus the stub-frontend tensors of the audio
+and VLM families.  Generation is host-side numpy with the reference's exact
+``np.random.default_rng`` call sequence, so a seed gives the reference's
+tokens and labels bit for bit; each batch is then moved to an explicit
+device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass
+class DataConfig:
+    batch: int
+    seq: int
+    seed: int = 0
+
+
+class SyntheticLM:
+    """Markov-ish synthetic corpus: learnable structure, zero I/O."""
+
+    def __init__(self, cfg: ModelConfig, data: DataConfig,
+                 device: str | torch.device = "cpu") -> None:
+        self.cfg = cfg
+        self.data = data
+        self.device = torch.device(device)
+        self.rng = np.random.default_rng(data.seed)
+        v = min(cfg.vocab, 32768)
+        self._vocab = v
+        # sparse bigram table: each token has a few likely successors
+        self._succ = self.rng.integers(0, v, size=(v, 4))
+
+    def _sample_sequence(self, length: int) -> np.ndarray:
+        v = self._vocab
+        out = np.empty(length, np.int32)
+        tok = int(self.rng.integers(0, v))
+        for i in range(length):
+            out[i] = tok
+            if self.rng.random() < 0.8:  # follow the bigram structure
+                tok = int(self._succ[tok, self.rng.integers(0, 4)])
+            else:
+                tok = int(self.rng.integers(0, v))
+        return out
+
+    def _stub(self, n: int) -> torch.Tensor:
+        """[B, n, d] stub-frontend embeddings, drawn in f64 and stored in
+        bf16 as the reference stores them."""
+        b, d = self.data.batch, self.cfg.d_model
+        x = self.rng.standard_normal((b, n, d)) * 0.02
+        return torch.from_numpy(x).to(self.device, torch.bfloat16)
+
+    def batches(self) -> Iterator[dict]:
+        """Endless batches: ``tokens``/``labels`` [B, S] int64 (labels are
+        the tokens shifted by one), and ``frames`` (audio) or ``patches``
+        (VLM) where the config has them."""
+        b, s = self.data.batch, self.data.seq
+        while True:
+            toks = torch.from_numpy(
+                np.stack([self._sample_sequence(s + 1) for _ in range(b)])
+            ).long()
+            batch = {"tokens": toks[:, :-1].to(self.device),
+                     "labels": toks[:, 1:].to(self.device)}
+            if self.cfg.family == "audio":
+                batch["frames"] = self._stub(self.cfg.enc_seq)
+            if self.cfg.family == "vlm" and self.cfg.vision_tokens:
+                batch["patches"] = self._stub(self.cfg.vision_tokens)
+            yield batch

@@ -340,3 +340,72 @@ def test_ssm_prefill_on_kernel_matches_plain_path(card):
         want = caches["xla"]["ssm"][name]
         got = caches["pallas"]["ssm"][name]
         assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+# -- training: the kernels refuse autograd; the plain path trains on the card -
+
+#: (kernel, route, input dtype) of each refusal case: every route of both
+#: kernels
+REFUSALS = [("flash", "sm90", torch.bfloat16), ("flash", "simt",
+                                                torch.float32),
+            ("ssd", "sm90", torch.bfloat16), ("ssd", "simt", torch.float32)]
+
+
+def _kernel_call(kernel, dtype, card):
+    """(call, inputs, module) of one small kernel call on the card."""
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card)
+    if kernel == "flash":
+        args = [rnd(1, 2, 64, 128).to(dtype) for _ in range(3)]
+        return lambda: fa.flash_attention(*args), args, fa
+    args = [rnd(1, 64, 2, 64).to(dtype), rnd(1, 64, 2).abs(),
+            -rnd(2).abs(), rnd(1, 64, 128), rnd(1, 64, 128)]
+    return lambda: ssd.ssd_scan(*args, chunk=64), args, ssd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,route,dtype", REFUSALS)
+def test_kernel_refuses_inputs_that_require_grad(card, kernel, route, dtype):
+    """On every route an input that requires grad raises before the
+    launch; without grad the same call launches on that route."""
+    call, args, mod = _kernel_call(kernel, dtype, card)
+    args[0].requires_grad_()
+    before = dict(mod.launches_by_route)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert mod.launches_by_route == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert {r: mod.launches_by_route[r] - before[r] for r in before} == {
+        r: int(r == route) for r in mod.ROUTES}
+
+
+@pytest.mark.cuda
+def test_f32_smoke_train_step_on_card_matches_cpu(card):
+    """One f32 step of qwen3's smoke config from one initial state on the
+    card and on the CPU: loss and grad norm within 1e-4, no kernel
+    launched."""
+    from repro_torch.models.module import tree_map
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = cast_tree(registry.init_params(
+        torch.Generator().manual_seed(0), cfg)[0], torch.float32)
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(),
+                     params)
+        batch = next(SyntheticLM(cfg, DataConfig(2, 64), dev).batches())
+        launches = (fa.launches, ssd.launches)
+        _, m = make_train_step(cfg)({"params": p, "opt": init_opt_state(p)},
+                                    batch)
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+        assert (fa.launches, ssd.launches) == launches
+    for key in ("loss", "grad_norm"):
+        assert abs(metrics["cuda"][key] - metrics["cpu"][key]) <= (
+            1e-4 * abs(metrics["cpu"][key])), (key, metrics)
