@@ -35,6 +35,17 @@ Phases, each raising on failure (the script then exits non-zero):
    (both "simt" kernels) and on bf16 weights (both "sm90" kernels), and
    the f32 last logits printed beside; then the f32 smoke config's greedy
    tokens on both paths;
+4d. serving: whisper-medium (24 encoder and 24 decoder layers) at full
+   width through ServeEngine.run, 8 prompts of 224 tokens in a context of
+   448, the encoder first over zero frames (plain, as in the reference),
+   then the decoder's prefill with its self attention on the flash kernel,
+   counting the launches (24 flash, all on "sm90"; no SSD), after zamba2's
+   weights are freed: the f32 prefill's last logits on the "simt" kernel
+   vs plain on the weights with wq and wk scaled by 0.1 (the random init
+   is chaotic, see check_whisper_prefill), each decoder layer's f32 self
+   attention ("simt") and bf16 self attention ("sm90") against its plain
+   version one by one; encoder ms and prefill ms by CUDA events; then the
+   f32 smoke config's greedy tokens on both paths;
 6. training, on the plain path (the kernels have no backward and refuse
    autograd): (a) qwen3-0.6b at full width, bf16 params and f32 moments,
    8 steps of B=8, S=512 through make_train_step as launch/train.py runs
@@ -68,6 +79,7 @@ ROOT = Path(__file__).resolve().parent
 ARCH = "qwen3-0.6b"
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "zamba2-7b"
+AUDIO_ARCH = "whisper-medium"
 SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -182,10 +194,13 @@ def flash_route(torch, dtype, d) -> str:
 
 
 #: the serving prefills' attention shapes (B, S, H, KH, D), causal, and the
-#: prefix of their cases' names: qwen3-0.6b (GQA 2:1, D=128) and zamba2-7b
-#: (MHA at D=112: the wgmma kernel's one-head-two-q-tiles layout)
+#: prefix of their cases' names: qwen3-0.6b (GQA 2:1, D=128), zamba2-7b
+#: (MHA at D=112: the wgmma kernel's one-head-two-q-tiles layout) and
+#: whisper-medium's decoder (MHA at D=64; its 224 prompt positions padded
+#: to 256 by ops.flash_mha, the kernel hiding keys from 224 on)
 FLASH_SERVING = [("qwen3-0.6b", "prefill", (8, 512, 16, 8, 128)),
-                 ("zamba2-7b", "zamba2", (8, 512, 32, 32, 112))]
+                 ("zamba2-7b", "zamba2", (8, 512, 32, 32, 112)),
+                 ("whisper-medium", "whisper", (8, 224, 16, 16, 64))]
 
 
 def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
@@ -246,27 +261,39 @@ def flash_timings(torch, fa, attention_ref, gen, arch, tag, shape, errors,
     the CUDA-core kernel in f32 (its route) and in bf16 (the kernel the
     bf16 prefill would run without the wgmma kernel, timed as a
     yardstick), the plain versions, and scaled_dot_product_attention (not
-    used by the port); returns the kernels line's entry of each route."""
+    used by the port); returns the kernels line's entry of each route.  A
+    prompt length that is no block multiple is zero-padded as
+    ops.flash_mha pads it, and every call gets the padded inputs: the
+    kernels and the plain version hide the keys past the prompt
+    (``kv_len``), SDPA's causal mask hides them from the prompt's rows.
+    The bound counts the prompt's own work."""
     import torch.nn.functional as F
     b, s, h, kh, d = shape
-    qm, km, vm = (torch.randn((b, s, n, d), generator=gen, device="cuda")
+    s_pad = -(-s // fa.BLOCK) * fa.BLOCK
+    kv_len = s if s_pad != s else None
+    qm, km, vm = (F.pad(torch.randn((b, s, n, d), generator=gen,
+                                    device="cuda"), (0, 0, 0, 0, 0, s_pad - s))
                   .to(torch.bfloat16) for n in (h, kh, kh))
     q, k, v = (x.transpose(1, 2) for x in (qm, km, vm))
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
     q32, k32, v32 = (x.float() for x in (qc, kc, vc))
     ms = {
-        "sm90": graph_ms(torch, lambda: fa.flash_attention(q, k, v)),
-        "simt_f32": graph_ms(torch, lambda: fa.flash_attention(q32, k32,
-                                                               v32)),
+        "sm90": graph_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                           kv_len=kv_len)),
+        "simt_f32": graph_ms(torch, lambda: fa.flash_attention(
+            q32, k32, v32, kv_len=kv_len)),
         "simt_bf16": graph_ms(torch, lambda: fa._launch(
             "simt", qc, kc, vc, causal=True, window=None, kv_len=s)),
-        "plain_bf16": graph_ms(torch, lambda: attention_ref(qc, kc, vc)),
-        "plain_f32": graph_ms(torch, lambda: attention_ref(q32, k32, v32)),
+        "plain_bf16": graph_ms(torch, lambda: attention_ref(
+            qc, kc, vc, kv_len=kv_len)),
+        "plain_f32": graph_ms(torch, lambda: attention_ref(
+            q32, k32, v32, kv_len=kv_len)),
         "sdpa_bf16": graph_ms(torch, lambda: F.scaled_dot_product_attention(
             qc, kc, vc, is_causal=True, enable_gqa=True)),
         "sdpa_f32": graph_ms(torch, lambda: F.scaled_dot_product_attention(
             q32, k32, v32, is_causal=True, enable_gqa=True)),
-        "sm90_again": graph_ms(torch, lambda: fa.flash_attention(q, k, v)),
+        "sm90_again": graph_ms(torch, lambda: fa.flash_attention(
+            q, k, v, kv_len=kv_len)),
     }
     entries = []
     for route, dtype, peak in (("sm90", "bfloat16", PEAK_BF16_FLOPS),
@@ -277,9 +304,10 @@ def flash_timings(torch, fa, attention_ref, gen, arch, tag, shape, errors,
         t_ops = flops / peak * 1e3
         key = "bf16" if dtype == "bfloat16" else "f32"
         kernel_ms = ms["sm90" if route == "sm90" else "simt_f32"]
-        print(f"[kernels] flash_attention ({route}) {arch} B={b} S={s} H={h} "
-              f"KH={kh} D={d} {key} causal: kernel {kernel_ms:.4f} ms, "
-              f"plain {ms['plain_' + key]:.4f} ms, sdpa "
+        padded = f" (padded to {s_pad})" if s_pad != s else ""
+        print(f"[kernels] flash_attention ({route}) {arch} B={b} S={s}"
+              f"{padded} H={h} KH={kh} D={d} {key} causal: kernel "
+              f"{kernel_ms:.4f} ms, plain {ms['plain_' + key]:.4f} ms, sdpa "
               f"{ms['sdpa_' + key]:.4f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP)",
               flush=True)
@@ -469,22 +497,32 @@ def ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs, arch, shape,
 N_REQ, PROMPT_LEN, MAX_NEW, CONTEXT = 8, 512, 64, 1024
 
 
-def serving_requests(torch, cfg):
+#: phase 4d's traffic: whisper's text context is 448 tokens, and its
+#: long-form decoding conditions each window on up to 224 tokens of the
+#: previous window's text (arXiv:2212.04356)
+AUDIO_PROMPT_LEN, AUDIO_CONTEXT = 224, 448
+
+
+def serving_requests(torch, cfg, prompt_len=PROMPT_LEN):
     """The serving phases' requests and their prompt batch on the card."""
     from repro_torch.launch.serve import make_requests
-    reqs = make_requests(cfg, N_REQ, PROMPT_LEN, MAX_NEW, SEED)
+    reqs = make_requests(cfg, N_REQ, prompt_len, MAX_NEW, SEED)
     tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(
         "cuda", torch.int64)
     return reqs, tokens
 
 
-def prefill_logits(torch, cfg, params, tokens, **changes):
+def prefill_logits(torch, cfg, params, tokens, context=CONTEXT, frames=None,
+                   **changes):
     """Last logits [B,1,V] in f32 of the engine's prefill, with the config
-    fields in ``changes`` replaced."""
+    fields in ``changes`` replaced; for the encoder-decoder the encoder
+    runs first over ``frames``."""
     from repro_torch.models import registry
     c = dataclasses.replace(cfg, **changes)
     with torch.inference_mode():
-        caches = registry.init_caches(c, tokens.shape[0], CONTEXT, "cuda")
+        caches = registry.init_caches(c, tokens.shape[0], context, "cuda")
+        if frames is not None:
+            registry.prefill_encoder(params, c, {"frames": frames}, caches)
         out, _ = registry.prefill_caches(params, c, tokens, caches)
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{cfg.name} prefill {changes}: non-finite")
@@ -627,8 +665,10 @@ def hybrid_block_errors(torch, cfg, params, tokens, exact_attention=False
 
 
 def check_blocks(cfg, rels, tol, what) -> dict:
+    """Each kind of block in ``rels`` (all but "plain path") held to
+    ``tol``, its worst and median printed."""
     out = {}
-    for kind in ("mamba2 mixer", "shared attention"):
+    for kind in (k for k in rels if k != "plain path"):
         errs = rels[kind]
         worst = max(range(len(errs)), key=errs.__getitem__)
         print(f"[serving] {cfg.name} {what} {kind} output, kernel vs plain, "
@@ -717,29 +757,165 @@ def check_hybrid_prefill(torch, cfg, params, tokens) -> dict:
     return out
 
 
+#: whisper's f32 last logits are held on the weights with every
+#: attention's wq and wk scaled by this factor (see check_whisper_prefill)
+AUDIO_QK_SCALE = 0.1
+
+
+def whisper_block_errors(torch, cfg, params, tokens, caches, exact=False
+                         ) -> dict[str, list[float]]:
+    """Each decoder layer's self attention over the prompt on the flash
+    kernel, fed the plain path's residual stream (cross attention over the
+    cross K/V in ``caches``), against the plain path's, relative to the
+    layer's largest output ("self attention").  With ``exact`` it is held
+    instead against the flash kernel's plain version (attention_ref, f32
+    scores) on the layer's own q/k/v, and its distance to the plain path
+    is kept under "plain path"."""
+    from repro_torch.kernels.ops import flash_mha
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import attention, encdec
+    kernel = dataclasses.replace(cfg, attn_impl="pallas")
+    plain = dataclasses.replace(cfg, attn_impl="xla")
+    positions = torch.arange(tokens.shape[1], device="cuda").expand(
+        tokens.shape)
+    rels = {"self attention": [], "plain path": []}
+
+    def self_attend(lp, h, i):
+        ref = attention.mha_full(lp, h, plain, positions)
+        if exact:
+            q, k, v = attention._project_qkv(lp, h, cfg, positions,
+                                             rope=False)
+            out = attention._out_proj(flash_mha(q, k, v, causal=True),
+                                      lp["wo"])
+            want = attention._out_proj(attention_ref(
+                *(t.transpose(1, 2) for t in (q, k, v)), causal=True
+            ).transpose(1, 2), lp["wo"])
+            rels["plain path"].append(rel_err(out.float(), ref.float()))
+        else:
+            out, want = attention.mha_full(lp, h, kernel, positions), ref
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"decoder layer {i}: non-finite")
+        rels["self attention"].append(rel_err(out.float(), want.float()))
+        return ref
+
+    with torch.inference_mode():
+        x = encdec._embed(params, cfg, tokens)
+        encdec.walk(params, plain, x, self_attend,
+                    encdec._cached_cross(caches, x.dtype))
+    return rels
+
+
+def check_whisper_prefill(torch, cfg, params, tokens) -> dict:
+    """whisper-medium's prefill, the decoder's self attention on the flash
+    kernel, on random frames from a numpy seed.  On the weights cast to f32
+    (the "simt" kernel): each decoder layer's self attention against the
+    plain path's, one by one, and the last prefill logits.  The logits are
+    held on the same f32 weights with every attention's wq and wk scaled by
+    AUDIO_QK_SCALE, and printed with no limit unscaled: the reference's
+    init draws wq and wk at 1/sqrt(n_heads) with no qk-norm, so the random
+    model's scores are in the hundreds and it is chaotic: kernel and plain,
+    which differ only in their sums' order, part by about the logits' size
+    at 24 layers (tests/test_torch_encdec.py shows one f32 step on the
+    frames moving the logits by more than 5e-3 at two).
+    On the bf16 weights (the "sm90" kernel), layer by layer: each self
+    attention against the same layer with the flash kernel's plain version
+    (attention_ref) on its own bf16 q/k/v; the model's plain attention
+    rounds the scores to bf16 before the softmax, so its distance is
+    printed only.  The encoder and the cross attention run plain, as in
+    the reference."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import registry
+    from repro_torch.models.module import cast_tree
+    n = cfg.n_layers
+    frames = registry.make_dummy_batch(cfg, tokens.shape[0], 1, seed=SEED + 2,
+                                       device="cuda")["frames"]
+    out = {}
+    p32 = cast_tree(params, torch.float32)
+    with torch.inference_mode():
+        caches = registry.init_caches(cfg, tokens.shape[0], AUDIO_CONTEXT,
+                                      "cuda")
+        registry.prefill_encoder(p32, cfg, {"frames": frames.float()},
+                                 caches)
+    with RouteCount(fa, {"sm90": 0, "simt": n},
+                    "f32 self attention on the flash kernel"):
+        rels = whisper_block_errors(torch, cfg, p32, tokens, caches)
+    out.update(check_blocks(cfg, rels, SSM_PREFILL_F32_REL_TOL, "f32"))
+    scaled = {**p32, **{stack: {**p32[stack],
+                                "wq": p32[stack]["wq"] * AUDIO_QK_SCALE,
+                                "wk": p32[stack]["wk"] * AUDIO_QK_SCALE}
+                        for stack in ("encoder", "decoder", "cross")}}
+    for scale, p in ((1.0, p32), (AUDIO_QK_SCALE, scaled)):
+        with RouteCount(fa, {"sm90": 0, "simt": n},
+                        "f32 prefill on the flash kernel"):
+            logits = prefill_logits(torch, cfg, p, tokens, AUDIO_CONTEXT,
+                                    frames.float(), attn_impl="pallas")
+        rel = rel_err(logits, prefill_logits(
+            torch, cfg, p, tokens, AUDIO_CONTEXT, frames.float(),
+            attn_impl="xla"))
+        held = scale != 1.0
+        out[f"prefill_f32_qk_scale_{scale}_kernel_vs_plain_rel_err"] = rel
+        print(f"[serving] {cfg.name} prefill last logits on f32 weights, "
+              f"wq and wk scaled by {scale}, flash kernel vs plain: rel err "
+              f"{rel:.3e} "
+              f"({f'tol {SSM_PREFILL_F32_REL_TOL}' if held else 'no limit'})",
+              flush=True)
+        if held and not rel < SSM_PREFILL_F32_REL_TOL:
+            raise AssertionError(f"f32 prefill logits disagree: rel err {rel}")
+    del p32, scaled, caches
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        caches = registry.init_caches(cfg, tokens.shape[0], AUDIO_CONTEXT,
+                                      "cuda")
+        registry.prefill_encoder(params, cfg, {"frames": frames}, caches)
+    with RouteCount(fa, {"sm90": n, "simt": 0},
+                    "bf16 self attention on the flash kernel"):
+        rels = whisper_block_errors(torch, cfg, params, tokens, caches,
+                                    exact=True)
+    out.update(check_blocks(cfg, rels, SSM_LAYER_REL_TOL, "bf16"))
+    worst = max(rels["plain path"])
+    out["bf16_self_attention_vs_plain_path_max_rel_err"] = worst
+    print(f"[serving] {cfg.name} bf16 self attention output, kernel vs the "
+          f"plain path (scores rounded to bf16): max rel err {worst:.3e}, "
+          f"median {float(np.median(rels['plain path'])):.3e} (no limit)",
+          flush=True)
+    return out
+
+
 def phase_serving(torch, counters, cfg, params, check_prefill,
-                  want_launches, want_routes) -> dict:
+                  want_launches, want_routes, prompt_len=PROMPT_LEN,
+                  context=CONTEXT) -> dict:
     """Full-width serving through ServeEngine.run: ``check_prefill`` holds
     the prefill's last logits on the kernel path against the plain path,
     then the run goes with every kernel's launch count set to 0 just
     before it and read just after; ``want_launches`` maps each kernel
     module's name to the launches the run must make, and ``want_routes``
-    each module's name to its launches by route."""
+    each module's name to its launches by route.  For the encoder-decoder
+    the encoder (over the engine's zero frames) is timed on its own before
+    the decoder's prefill."""
     from repro_torch.core.mig_h100 import MigH100Backend
     from repro_torch.models import registry
     from repro_torch.serving.engine import EngineConfig, ServeEngine
 
-    reqs, tokens = serving_requests(torch, cfg)
+    reqs, tokens = serving_requests(torch, cfg, prompt_len)
     checks = check_prefill(torch, cfg, params, tokens)
+    timings = {}
     with torch.inference_mode():
-        caches = registry.init_caches(cfg, N_REQ, CONTEXT, "cuda")
-        prefill_ms = timed_ms(torch, lambda: registry.prefill_caches(
-            params, cfg, tokens, caches), n=5, warmup=1)
+        caches = registry.init_caches(cfg, N_REQ, context, "cuda")
+        if cfg.family == "audio":
+            frames = torch.zeros((N_REQ, cfg.enc_seq, cfg.d_model),
+                                 dtype=torch.bfloat16, device="cuda")
+            timings["encoder_ms"] = timed_ms(
+                torch, lambda: registry.prefill_encoder(
+                    params, cfg, {"frames": frames}, caches), n=5, warmup=1)
+        timings["prefill_ms"] = timed_ms(
+            torch, lambda: registry.prefill_caches(params, cfg, tokens,
+                                                   caches), n=5, warmup=1)
         del caches
 
     # the main path, with the kernels' launch counts read around it
     engine = ServeEngine(cfg, params,
-                         EngineConfig(max_batch=N_REQ, max_context=CONTEXT,
+                         EngineConfig(max_batch=N_REQ, max_context=context,
                                       predict=False),
                          backend=MigH100Backend(), device="cuda")
     torch.cuda.synchronize()
@@ -767,10 +943,11 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     if len(engine.accountant.history) != 1 + MAX_NEW:
         raise AssertionError("accountant missed iterations")
     stats = {
-        "arch": cfg.name, "requests": N_REQ, "prompt_len": PROMPT_LEN,
-        "new_tokens": MAX_NEW, "max_context": CONTEXT,
-        "prefill_ms": prefill_ms, "run_s": run_s,
-        "decode_ms_per_step": (run_s * 1e3 - prefill_ms) / MAX_NEW,
+        "arch": cfg.name, "requests": N_REQ, "prompt_len": prompt_len,
+        "new_tokens": MAX_NEW, "max_context": context, **timings,
+        "run_s": run_s,
+        "decode_ms_per_step": (run_s * 1e3 - sum(timings.values()))
+        / MAX_NEW,
         "tokens_per_s": n_tok / run_s,
         "accountant_peak_in_use_gb": engine.accountant.peak_in_use / 2**30,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -1151,6 +1328,23 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         phase_smoke_tokens(torch, HYBRID_ARCH, ("attn_impl", "ssm_impl"))
+
+    # 4d. full-width whisper serving, the decoder's prefill on the flash
+    # kernel, on its own memory
+    with clock("4d whisper serving"):
+        cfg = dataclasses.replace(get_config(AUDIO_ARCH), attn_impl="pallas")
+        gen.manual_seed(SEED)
+        params, _ = registry.init_params(gen, cfg)
+        serving = phase_serving(
+            torch, counters, cfg, params, check_whisper_prefill,
+            {"flash_attention": cfg.n_layers, "ssd_scan": 0},
+            {"flash_attention": {"sm90": cfg.n_layers, "simt": 0},
+             "ssd_scan": {"sm90": 0, "simt": 0}},
+            prompt_len=AUDIO_PROMPT_LEN, context=AUDIO_CONTEXT)
+        set_launches(flash, serving)
+        del params
+        torch.cuda.empty_cache()
+        phase_smoke_tokens(torch, AUDIO_ARCH, ("attn_impl",))
 
     # 6. training on the plain path: full-width qwen3, card vs CPU parity,
     # and the kernels' refusal of autograd

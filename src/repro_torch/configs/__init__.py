@@ -7,6 +7,7 @@ ARCH_MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 

@@ -2,19 +2,21 @@
 ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch qwen3-0.6b | mamba2-2.7b | zamba2-7b]
+        [--arch qwen3-0.6b | mamba2-2.7b | zamba2-7b | whisper-medium]
 
 Builds chip_smoke.py's serving configuration for the arch (full width,
 random bf16 weights from seed 0, ``attn_impl`` and ``ssm_impl`` "pallas",
-8 prompts of 512 tokens, context 1024), then profiles two windows, each
-after a warm-up: one ``registry.prefill_caches`` over the prompt batch (the
-engine's prefill call), and 16 decode steps as the engine takes them
-(``registry.decode_step``, the greedy argmax and the copy of the tokens
-to the host).  For each window it prints the wall time, the summed device
-kernel time, the device's busy share, the kernel launches, and the
-kernels that take the most device time, and how many launches were flash,
-SSD and copy kernels, then one JSON line.  It needs a card and fails without
-one.
+8 prompts of 512 tokens and context 1024; whisper-medium 8 prompts of 224
+tokens and context 448), then profiles its windows, each after a warm-up:
+for whisper-medium first the encoder (``registry.prefill_encoder`` over
+zero frames, as the engine runs it); one ``registry.prefill_caches`` over
+the prompt batch (the engine's prefill call); and 16 decode steps as the
+engine takes them (``registry.decode_step``, the greedy argmax and the
+copy of the tokens to the host).  For each window it prints the wall
+time, the summed device kernel time, the device's busy share, the kernel
+launches, and the kernels that take the most device time, and how many
+launches were flash, SSD and copy kernels, then one JSON line.  It needs a
+card and fails without one.
 """
 
 from __future__ import annotations
@@ -68,7 +70,10 @@ def _window(fn, device) -> dict:
 #: (direct_copy_kernel_cuda and the like, which layout changes launch)
 COUNTED = ("flash", "ssd", "copy")
 SEED = 0
-REQUESTS, PROMPT_LEN, MAX_CONTEXT, DECODE_STEPS = 8, 512, 1024, 16
+REQUESTS, DECODE_STEPS = 8, 16
+#: (prompt tokens, context) of each arch's serving phase in chip_smoke.py
+SHAPES = {"whisper-medium": (224, 448)}
+DEFAULT_SHAPE = (512, 1024)
 
 
 def main() -> None:
@@ -81,11 +86,17 @@ def main() -> None:
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     params, _ = registry.init_params(gen, cfg)
+    prompt_len, max_context = SHAPES.get(cfg.name, DEFAULT_SHAPE)
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (REQUESTS, PROMPT_LEN))).to(device)
-    caches = registry.init_caches(cfg, REQUESTS, MAX_CONTEXT, device)
+        0, cfg.vocab, (REQUESTS, prompt_len))).to(device)
+    caches = registry.init_caches(cfg, REQUESTS, max_context, device)
     state = {}
+
+    def encoder():
+        frames = torch.zeros((REQUESTS, cfg.enc_seq, cfg.d_model),
+                             dtype=torch.bfloat16, device=device)
+        registry.prefill_encoder(params, cfg, {"frames": frames}, caches)
 
     def prefill():
         state["logits"], _ = registry.prefill_caches(params, cfg, tokens,
@@ -95,21 +106,23 @@ def main() -> None:
         tok = torch.argmax(state["logits"][:, -1, :cfg.vocab], dim=-1)[:, None]
         for step in range(DECODE_STEPS):
             logits, _ = registry.decode_step(params, cfg, tok,
-                                             PROMPT_LEN + step, caches)
+                                             prompt_len + step, caches)
             tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
             tok.cpu()
 
+    windows = {"prefill": prefill, "decode": decode}
+    if cfg.family == "audio":
+        windows = {"encoder": encoder, **windows}
     with torch.inference_mode():
-        prefill()
-        decode()                      # warm-up of both windows
+        for fn in windows.values():   # warm-up of every window
+            fn()
         out = {"card": torch.cuda.get_device_name(device),
                "config": {"arch": cfg.name, "requests": REQUESTS,
-                          "prompt_len": PROMPT_LEN,
-                          "max_context": MAX_CONTEXT,
+                          "prompt_len": prompt_len,
+                          "max_context": max_context,
                           "decode_steps": DECODE_STEPS},
-               "prefill": _window(prefill, device),
-               "decode": _window(decode, device)}
-    for name in ("prefill", "decode"):
+               **{name: _window(fn, device) for name, fn in windows.items()}}
+    for name in windows:
         w = out[name]
         print(f"[profile] {name}: wall {w['wall_ms']:.2f} ms, device busy "
               f"{w['device_busy_ms']:.2f} ms ({100 * w['busy_share']:.1f}%),"

@@ -6,8 +6,10 @@
 
 Runs on the card (``--device cuda``, the default) on an H100 MIG backend,
 with the prefill on the hand-written kernels: flash attention for the
-dense models, the SSD chunk scan for mamba2 (``--arch mamba2-2.7b``), both
-for the zamba2 hybrid (``--arch zamba2-7b``).  With
+dense models and for the decoder of the whisper encoder-decoder (``--arch
+whisper-medium``, whose encoder runs first, plain, on zero frames as the
+reference's engine gives it), the SSD chunk scan for mamba2 (``--arch
+mamba2-2.7b``), both for the zamba2 hybrid (``--arch zamba2-7b``).  With
 ``--partition-gb`` the engine runs the time-series predictor against that
 slice size and performs the early restart (regrow to the profile the
 predictor asks for) when the converged peak estimate exceeds it.

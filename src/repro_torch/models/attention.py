@@ -1,9 +1,10 @@
 """Grouped-query attention with RoPE, qk-norm, sliding-window / chunked
-masks and KV-cache decode (the dense decoder's self attention).
+masks, KV-cache decode, cross-attention, and bidirectional (encoder) mode.
 
 The plain path (``attn_impl='xla'``) is exact softmax attention in PyTorch;
-``attn_impl='pallas'`` sends full-sequence causal attention through the
-hand-written flash kernel (:func:`repro_torch.kernels.ops.flash_mha`).
+``attn_impl='pallas'`` sends full-sequence causal self attention through
+the hand-written flash kernel (:func:`repro_torch.kernels.ops.flash_mha`).
+Cross and bidirectional attention stay plain, as in the reference.
 
 KV caches are updated in place: decode and prefill write the new K/V into
 the cache tensors they are given and return those same tensors.
@@ -40,9 +41,14 @@ def init_attention(b: ParamBuilder, cfg: ModelConfig,
 
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') as one matmul."""
+    """einsum('bsd,dhk->bshk') as one matmul.  Mixed float inputs are
+    promoted to the wider type, as the reference's einsum promotes them
+    (whisper's bf16 stub frames meet f32 weights in the first encoder
+    layer)."""
     d, nh, hd = w.shape
-    return torch.matmul(x, w.reshape(d, nh * hd)).unflatten(-1, (nh, hd))
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dtype), w.reshape(d, nh * hd).to(dtype)
+                        ).unflatten(-1, (nh, hd))
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -52,15 +58,16 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, rope: bool = True):
     q = _proj_heads(x, params["wq"])
     k = _proj_heads(x, params["wk"])
     v = _proj_heads(x, params["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -97,15 +104,15 @@ def _sdpa(q, k, v, bias, cfg: ModelConfig):
     return out.reshape(b_, sq, h, hd)
 
 
-def _sdpa_qblocked(q, k, v, q_pos, k_pos, window, chunk,
+def _sdpa_qblocked(q, k, v, q_pos, k_pos, window, chunk, causal: bool,
                    cfg: ModelConfig, block: int):
-    """Exact causal attention over query blocks of ``block`` rows, so live
-    memory holds one [B,H,block,Sk] score slab instead of [B,H,Sq,Sk]."""
+    """Exact attention over query blocks of ``block`` rows, so live memory
+    holds one [B,H,block,Sk] score slab instead of [B,H,Sq,Sk]."""
     sq = q.shape[1]
     outs = []
     for start in range(0, sq, block):
         stop = start + block
-        bias = _mask_bias(q_pos[start:stop], k_pos, window, chunk)
+        bias = _mask_bias(q_pos[start:stop], k_pos, window, chunk, causal)
         outs.append(_sdpa(q[:, start:stop], k, v, bias, cfg))
     return torch.cat(outs, dim=1)
 
@@ -120,14 +127,28 @@ def _attend_self(q, k, v, cfg: ModelConfig, pos: torch.Tensor, window,
         return ops.flash_mha(q, k, v, causal=True, window=window)
     if s <= block or s % block != 0:
         return _sdpa(q, k, v, _mask_bias(pos, pos, window, chunk), cfg)
-    return _sdpa_qblocked(q, k, v, pos, pos, window, chunk, cfg, block)
+    return _sdpa_qblocked(q, k, v, pos, pos, window, chunk, True, cfg,
+                          block)
+
+
+def _attend(q, k, v, q_pos, k_pos, window, chunk, causal: bool,
+            cfg: ModelConfig, q_block: int = 512) -> torch.Tensor:
+    """Plain attention of q over k/v (cross and bidirectional): one
+    [B,H,Sq,Sk] score slab unless Sq is a multiple of ``q_block`` above
+    it, then q-blocked."""
+    sq = q.shape[1]
+    if sq <= q_block or sq % q_block != 0:
+        bias = _mask_bias(q_pos, k_pos, window, chunk, causal)
+        return _sdpa(q, k, v, bias, cfg)
+    return _sdpa_qblocked(q, k, v, q_pos, k_pos, window, chunk, causal, cfg,
+                          q_block)
 
 
 def mha_full(params: dict, x: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, window: int | None = None,
              chunk: int | None = None) -> torch.Tensor:
     """Full-sequence causal self attention (training / prefill)."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, rope=not _no_rope(cfg))
     pos = positions[0] if positions.dim() > 1 else positions
     return _out_proj(_attend_self(q, k, v, cfg, pos, window, chunk),
                      params["wo"])
@@ -145,7 +166,7 @@ def mha_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """
     b_, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b_, s)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, rope=not _no_rope(cfg))
     cache_k[:, :s] = k.to(cache_k.dtype)
     cache_v[:, :s] = v.to(cache_v.dtype)
     out = _attend_self(q, cache_k[:, :s].to(q.dtype),
@@ -162,7 +183,8 @@ def mha_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     Returns (y, cache_k, cache_v)."""
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
                            device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions,
+                                   rope=not _no_rope(cfg))
     cache_k[:, index:index + 1] = k_new.to(cache_k.dtype)
     cache_v[:, index:index + 1] = v_new.to(cache_v.dtype)
     k_pos = torch.arange(cache_k.shape[1], device=x.device)
@@ -174,6 +196,46 @@ def mha_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     bias = torch.where(valid, 0.0, NEG_INF).float()[None, :]
     out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias, cfg)
     return _out_proj(out, params["wo"]), cache_k, cache_v
+
+
+def mha_cross(params: dict, x: torch.Tensor, enc_k: torch.Tensor,
+              enc_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention (whisper decoder): x:[B,S,d] over the encoder's K/V
+    enc_k/enc_v:[B,Senc,KH,hd], precomputed by :func:`cross_kv`."""
+    s = x.shape[1]
+    q = _proj_heads(x, params["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+    q_pos = torch.arange(s, device=x.device)
+    k_pos = torch.arange(enc_k.shape[1], device=x.device)
+    out = _attend(q, enc_k, enc_v, q_pos, k_pos, None, None, False, cfg)
+    return _out_proj(out, params["wo"])
+
+
+def cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K/V [B,Senc,KH,hd] for cross attention."""
+    k = _proj_heads(enc_out, params["wk"])
+    v = _proj_heads(enc_out, params["wv"])
+    if cfg.qk_norm:
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def mha_bidirectional(params: dict, x: torch.Tensor, cfg: ModelConfig
+                      ) -> torch.Tensor:
+    """Encoder self-attention: no mask, no cache, no RoPE (the whisper
+    encoder's learned positions are added by the caller)."""
+    b_, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b_, s)
+    q, k, v = _project_qkv(params, x, cfg, positions, rope=False)
+    pos = positions[0]
+    out = _attend(q, k, v, pos, pos, None, None, False, cfg)
+    return _out_proj(out, params["wo"])
+
+
+def _no_rope(cfg: ModelConfig) -> bool:
+    return cfg.family == "audio"  # whisper uses learned positions
 
 
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, context: int,

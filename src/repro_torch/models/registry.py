@@ -1,13 +1,14 @@
 """Unified model API over the families the port runs, routed by family as
-in the reference: the hybrid (zamba2) to :mod:`models.hybrid`, the dense,
-VLM and ssm stacks to :mod:`models.transformer`.
+in the reference: the encoder-decoder (whisper) to :mod:`models.encdec`,
+the hybrid (zamba2) to :mod:`models.hybrid`, the dense, VLM and ssm stacks
+to :mod:`models.transformer`.
 
 A "batch" is a dict:
     tokens   [B, S] int             (all families)
     labels   [B, S] int             (training; -1 = masked)
+    frames   [B, enc_seq, d]        (audio stub frontend)
     patches  [B, vision_tokens, d]  (VLM stub frontend)
-The other families (moe, audio) raise NotImplementedError until their
-slice is ported.
+The moe family raises NotImplementedError until its slice is ported.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.models.transformer import DecoderOutput
 
@@ -28,12 +29,16 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
     device (or on ``device``; ``'meta'`` takes no generator)."""
     if device is None:
         device = generator.device if generator is not None else "cpu"
+    if cfg.family == "audio":
+        return encdec.init_encdec(generator, cfg, device)
     if cfg.family == "hybrid":
         return hybrid.init_hybrid(generator, cfg, device)
     return transformer.init_decoder(generator, cfg, device)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> DecoderOutput:
+    if cfg.family == "audio":
+        return encdec.forward(params, cfg, batch["tokens"], batch["frames"])
     if cfg.family == "hybrid":
         return hybrid.forward(params, cfg, batch["tokens"])
     return transformer.forward(params, cfg, batch["tokens"],
@@ -51,13 +56,27 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
 
 def init_caches(cfg: ModelConfig, batch: int, context: int,
                 device: str | torch.device = "cpu") -> dict:
+    if cfg.family == "audio":
+        return encdec.init_caches(cfg, batch, context, device)
     if cfg.family == "hybrid":
         return hybrid.init_caches(cfg, batch, context, device)
     return transformer.init_caches(cfg, batch, context, device)
 
 
+def prefill_encoder(params: dict, cfg: ModelConfig, batch: dict,
+                    caches: dict) -> dict:
+    """Enc-dec models: run the encoder once over ``batch["frames"]`` and
+    stash the cross K/V in ``caches`` (in place); the other families'
+    caches come back untouched."""
+    if cfg.family == "audio":
+        return encdec.prefill_cross_kv(params, cfg, batch["frames"], caches)
+    return caches
+
+
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 index: int, caches: dict) -> tuple[torch.Tensor, dict]:
+    if cfg.family == "audio":
+        return encdec.decode_step(params, cfg, token, index, caches)
     if cfg.family == "hybrid":
         return hybrid.decode_step(params, cfg, token, index, caches)
     return transformer.decode_step(params, cfg, token, index, caches)
@@ -65,6 +84,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Forward over the prompt returning ONLY the last position's logits."""
+    if cfg.family == "audio":
+        return encdec.forward(params, cfg, batch["tokens"], batch["frames"],
+                              last_only=True).logits
     if cfg.family == "hybrid":
         return hybrid.forward(params, cfg, batch["tokens"],
                               last_only=True).logits
@@ -78,7 +100,10 @@ def prefill_caches(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """The serving engine's prefill: one forward over the padded [B,S]
     prompt batch that fills ``caches`` in place as a replay of the prompt
     through :func:`decode_step` would, returning (last logits [B,1,V],
-    caches)."""
+    caches).  For the encoder-decoder the caches' cross K/V must already
+    hold the encoder's (:func:`prefill_encoder`)."""
+    if cfg.family == "audio":
+        return encdec.prefill(params, cfg, tokens, caches)
     if cfg.family == "hybrid":
         return hybrid.prefill(params, cfg, tokens, caches)
     return transformer.prefill(params, cfg, tokens, caches)
@@ -86,7 +111,8 @@ def prefill_caches(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def make_dummy_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                      device: str | torch.device = "cpu") -> dict:
-    """Random tokens/labels (and VLM patches) from a numpy seed."""
+    """Random tokens/labels (and audio frames or VLM patches) from a numpy
+    seed; the stub-frontend tensors in bf16, as the reference's."""
     rng = np.random.default_rng(seed)
     out = {
         "tokens": torch.from_numpy(
@@ -94,6 +120,10 @@ def make_dummy_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
         "labels": torch.from_numpy(
             rng.integers(0, cfg.vocab, (batch, seq), dtype=np.int64)),
     }
+    if cfg.family == "audio":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+        ).to(torch.bfloat16)
     if cfg.family == "vlm" and cfg.vision_tokens:
         out["patches"] = torch.from_numpy(rng.standard_normal(
             (batch, cfg.vision_tokens, cfg.d_model), dtype=np.float32)

@@ -55,8 +55,9 @@ def _layer_masks(cfg: ModelConfig) -> list[tuple[int | None, int | None]]:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm", "ssm") or cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense decoder, the ssm stack "
-            f"and the hybrid (models/hybrid.py) only (family={cfg.family}, "
+            f"{cfg.name}: the port runs the dense decoder, the ssm stack, "
+            f"the hybrid (models/hybrid.py) and the encoder-decoder "
+            f"(models/encdec.py) only (family={cfg.family}, "
             f"n_experts={cfg.n_experts})")
 
 

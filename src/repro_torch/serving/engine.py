@@ -9,7 +9,9 @@ prediction exceeds the partition the engine raises
 regrows the slice.  Same fields, accounting and restart trade as the
 reference engine (``repro.serving.engine``); prefill is one forward over
 the prompt batch that fills the caches
-(:func:`repro_torch.models.registry.prefill_caches`).
+(:func:`repro_torch.models.registry.prefill_caches`), after the encoder
+has filled the cross K/V for the encoder-decoder, from zero frames as in
+the reference.
 """
 
 from __future__ import annotations
@@ -102,6 +104,11 @@ class ServeEngine:
         for i, r in enumerate(requests):
             toks[i, :len(r.prompt)] = r.prompt
         tokens = torch.from_numpy(toks).to(self.device)
+        if cfg.family == "audio":
+            frames = torch.zeros((b, cfg.enc_seq, cfg.d_model),
+                                 dtype=torch.bfloat16, device=self.device)
+            caches = registry.prefill_encoder(self.params, cfg,
+                                              {"frames": frames}, caches)
         logits, caches = registry.prefill_caches(self.params, cfg, tokens,
                                                  caches)
         self._note_iteration(caches, prompt_len)

@@ -409,3 +409,91 @@ def test_f32_smoke_train_step_on_card_matches_cpu(card):
     for key in ("loss", "grad_norm"):
         assert abs(metrics["cuda"][key] - metrics["cpu"][key]) <= (
             1e-4 * abs(metrics["cpu"][key])), (key, metrics)
+
+
+#: whisper's random init is chaotic (scores in the hundreds, no qk-norm):
+#: one f32 step on its frames moves its logits by over 5e-3 at two layers
+#: (tests/test_torch_encdec.py).  Card-vs-CPU comparisons scale every
+#: attention's wq and wk by this factor, which brings the scores to O(1)
+WHISPER_QK_SCALE = 0.1
+
+
+def _whisper_smoke(dtype):
+    """whisper's smoke config (GQA 4:2 at head dim 64) and its params on
+    the CPU in ``dtype``, wq and wk scaled by WHISPER_QK_SCALE."""
+    cfg = get_smoke_config("whisper-medium")
+    params = cast_tree(registry.init_params(
+        torch.Generator().manual_seed(0), cfg)[0], dtype)
+    for stack in ("encoder", "decoder", "cross"):
+        for key in ("wq", "wk"):
+            params[stack][key] = params[stack][key] * WHISPER_QK_SCALE
+    return cfg, params
+
+
+@pytest.mark.cuda
+def test_whisper_prefill_on_card_matches_cpu(card):
+    """Smoke config, f32 weights and frames, f32 caches: the encoder
+    prefill and the decoder prefill on the card, the decoder's self
+    attention on the simt kernel (one launch a layer), against the same
+    calls on the CPU (the kernel's plain version): self and cross caches
+    and last logits within 1e-4 of their largest entry."""
+    from repro_torch.models.module import tree_map
+    cfg, params = _whisper_smoke(torch.float32)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    batch = registry.make_dummy_batch(cfg, 3, 100, seed=1)
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            caches = cast_tree(registry.init_caches(cfg, 3, 128, dev),
+                               torch.float32)
+            before = _route_counts()
+            registry.prefill_encoder(
+                p, cfg, {"frames": batch["frames"].to(dev, torch.float32)},
+                caches)
+            logits, caches = registry.prefill_caches(
+                p, cfg, batch["tokens"].to(dev), caches)
+            want = cfg.n_layers if dev == "cuda" else 0
+            assert _moved(before) == {"sm90": 0, "simt": want}
+            out[dev] = {"logits": logits, **caches}
+    for name, ref in out["cpu"].items():
+        got = out["cuda"][name].cpu()
+        err = (got - ref).abs().max() / ref.abs().max()
+        assert float(err) < 1e-4, (name, float(err))
+
+
+@pytest.mark.cuda
+def test_whisper_bf16_serving_launches_flash_on_sm90(card):
+    """Smoke config, bf16 weights (wq and wk scaled): ServeEngine.run makes
+    one sm90 flash launch per decoder layer in its prefill, none on simt
+    and no SSD launch; the encoder and the cross attention stay plain.  The
+    prefill's last logits stay within 5e-2 of the plain path's."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.module import tree_map
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    cfg, params = _whisper_smoke(torch.bfloat16)
+    params = tree_map(lambda t: t.to(card), params)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    reqs = make_requests(cfg, 3, 100, 8, 0)
+    before, ssd_before = _route_counts(), ssd.launches
+    out = ServeEngine(cfg, params, EngineConfig(max_batch=3, max_context=128,
+                                                predict=False),
+                      device=card).run(reqs)
+    assert _moved(before) == {"sm90": cfg.n_layers, "simt": 0}
+    assert ssd.launches == ssd_before
+    assert all(len(r.generated) == 8 and 0 <= min(r.generated)
+               and max(r.generated) < cfg.vocab for r in out)
+    frames = torch.zeros((3, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16,
+                         device=card)
+    tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(card)
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("xla", "pallas"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            caches = registry.init_caches(c, 3, 128, card)
+            registry.prefill_encoder(params, c, {"frames": frames}, caches)
+            logits[impl], _ = registry.prefill_caches(params, c, tokens,
+                                                      caches)
+    err = ((logits["pallas"].float() - logits["xla"].float()).abs().max()
+           / logits["xla"].float().abs().max())
+    assert float(err) < 5e-2, float(err)

@@ -332,7 +332,7 @@ def test_decode_loop_matches_reference(weights):
 
 def test_unported_families_raise():
     from repro_torch.configs import ModelConfig
-    for arch in ("whisper-medium", "grok-1-314b"):
+    for arch in ("grok-1-314b", "llama4-maverick-400b-a17b"):
         cfg = ModelConfig(**dataclasses.asdict(ref_get_smoke_config(arch)))
         with pytest.raises(NotImplementedError, match="the port runs"):
             registry.init_caches(cfg, 1, 8)
