@@ -11,10 +11,12 @@ Phases, each raising on failure (the script then exits non-zero):
    ssd_scan_sm90.cu, one nvcc each, started together), printing nvcc's
    and ptxas's whole output;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving paths' shapes (flash at qwen3's and zamba2's, SSD at
-   mamba2's and zamba2's) and a few edge cases, with times at each serving
-   shape; the flash cases go to both routes (bf16 at D 64/112/128 to the
-   wgmma kernel "sm90", f32 to the CUDA-core kernel "simt"), and so do the
+   the serving paths' shapes (flash at qwen3's, zamba2's, whisper's,
+   gemma-2b's (D=256, MQA), gemma3-27b's local (window 1024 over 1536
+   positions) and global layers' and pixtral's; SSD at mamba2's and
+   zamba2's) and a few edge cases, with times at each serving shape; the
+   flash cases go to both routes (bf16 at D 64/112/128/256 to the wgmma
+   kernel "sm90", f32 to the CUDA-core kernel "simt"), and so do the
    SSD cases (bf16 at P=64, N 64 or 128 and a chunk that is a multiple of
    64 to the wgmma kernel "sm90", the rest to the CUDA-core kernel
    "simt"), each case's launch counted on the route it must take;
@@ -46,6 +48,19 @@ Phases, each raising on failure (the script then exits non-zero):
    attention ("simt") and bf16 self attention ("sm90") against its plain
    version one by one; encoder ms and prefill ms by CUDA events; then the
    f32 smoke config's greedy tokens on both paths;
+4e. serving: the remaining dense and VLM configs, each at full width and
+   depth on freed memory through ServeEngine.run, the prefill on the flash
+   kernel: qwen3-1.7b (28 launches), gemma-2b (18, head dim 256 with one
+   KV head), gemma3-27b (62, 52 of them with the window of 1024; 8 prompts
+   of 1536 tokens in a context of 2048) and pixtral-12b (40, served on text
+   tokens as the reference's engine serves it), all on "sm90", none on
+   "simt", no SSD: each layer's bf16 self attention against its plain
+   version one by one, the last logits flash vs plain (held for the
+   qk-norm models; for gemma-2b and pixtral, whose random init is chaotic,
+   held on the weights with wq and wk rescaled to the fan-in d_model and
+   printed as drawn, see check_dense_prefill; pixtral's also with 256 stub
+   patches), the init's own peak memory, then the f32 smoke config's
+   greedy tokens on both paths;
 6. training, on the plain path (the kernels have no backward and refuse
    autograd): (a) qwen3-0.6b at full width, bf16 params and f32 moments,
    8 steps of B=8, S=512 through make_train_step as launch/train.py runs
@@ -188,28 +203,38 @@ def graph_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
 
 def flash_route(torch, dtype, d) -> str:
     """The kernel the wrapper must pick: the wgmma kernel for bf16 at head
-    dims 64, 112 and 128, the CUDA-core kernel for everything else."""
-    return ("sm90" if dtype == torch.bfloat16 and d in (64, 112, 128)
+    dims 64, 112, 128 and 256, the CUDA-core kernel for everything else."""
+    return ("sm90" if dtype == torch.bfloat16 and d in (64, 112, 128, 256)
             else "simt")
 
 
-#: the serving prefills' attention shapes (B, S, H, KH, D), causal, and the
-#: prefix of their cases' names: qwen3-0.6b (GQA 2:1, D=128), zamba2-7b
-#: (MHA at D=112: the wgmma kernel's one-head-two-q-tiles layout) and
-#: whisper-medium's decoder (MHA at D=64; its 224 prompt positions padded
-#: to 256 by ops.flash_mha, the kernel hiding keys from 224 on)
-FLASH_SERVING = [("qwen3-0.6b", "prefill", (8, 512, 16, 8, 128)),
-                 ("zamba2-7b", "zamba2", (8, 512, 32, 32, 112)),
-                 ("whisper-medium", "whisper", (8, 224, 16, 16, 64))]
+#: the serving prefills' attention shapes (B, S, H, KH, D, window), causal,
+#: the archs whose prefill calls the kernel at that shape, and the prefix
+#: of their cases' names: qwen3-0.6b and qwen3-1.7b (GQA 2:1, D=128; one
+#: shape, the same 16 heads of 128 at both widths), zamba2-7b (MHA at
+#: D=112: the wgmma kernel's one-head-two-q-tiles layout), whisper-medium's
+#: decoder (MHA at D=64; its 224 prompt positions padded to 256 by
+#: ops.flash_mha, the kernel hiding keys from 224 on), gemma-2b (MQA at
+#: D=256: the kernel's one-block-an-SM code), gemma3-27b's 52 local layers
+#: (a window of 1024 over 1536 prompt tokens) and its 10 global layers, and
+#: pixtral-12b (GQA 4:1, D=128)
+FLASH_SERVING = [
+    (("qwen3-0.6b", "qwen3-1.7b"), "prefill", (8, 512, 16, 8, 128, None)),
+    (("zamba2-7b",), "zamba2", (8, 512, 32, 32, 112, None)),
+    (("whisper-medium",), "whisper", (8, 224, 16, 16, 64, None)),
+    (("gemma-2b",), "gemma2b", (8, 512, 8, 1, 256, None)),
+    (("gemma3-27b",), "gemma3-local", (8, 1536, 32, 16, 128, 1024)),
+    (("gemma3-27b",), "gemma3-global", (8, 1536, 32, 16, 128, None)),
+    (("pixtral-12b",), "pixtral", (8, 512, 32, 8, 128, None))]
 
 
 def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     # (name, B, S, H, KH, D, dtype, causal, window): each serving prefill's
-    # shape in bf16 and f32, then edge cases.  bf16 cases at D 64/112/128
-    # go to the wgmma kernel, the rest to the CUDA-core kernel.
-    cases = [(f"{tag}-{name}", *shape, dtype, True, None)
+    # shape in bf16 and f32, then edge cases.  bf16 cases at D 64, 112, 128
+    # and 256 go to the wgmma kernel, the rest to the CUDA-core kernel.
+    cases = [(f"{tag}-{name}", *shape[:5], dtype, True, shape[5])
              for _, tag, shape in FLASH_SERVING
              for name, dtype in (("bf16", torch.bfloat16),
                                  ("f32", torch.float32))]
@@ -222,6 +247,15 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
         ("non-causal-s200-bf16", 2, 200, 16, 8, 128, torch.bfloat16, False,
          None),
         ("zamba2-ragged-s200", 8, 200, 32, 32, 112, torch.bfloat16, True,
+         None),
+        # D=256 on the wgmma kernel: ragged S, a window, an odd group (one
+        # head over two q tiles a block), S=1024, non-causal ragged
+        ("gemma2b-ragged-s200", 8, 200, 8, 1, 256, torch.bfloat16, True,
+         None),
+        ("gemma2b-window128", 8, 512, 8, 1, 256, torch.bfloat16, True, 128),
+        ("d256-mqa-odd-h3", 8, 512, 3, 1, 256, torch.bfloat16, True, None),
+        ("d256-mqa-s1024", 2, 1024, 8, 1, 256, torch.bfloat16, True, None),
+        ("d256-non-causal-s200", 2, 200, 8, 2, 256, torch.bfloat16, False,
          None),
     ]
     errors, routes = {}, {}
@@ -249,12 +283,12 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
             raise AssertionError(f"flash_attention {name}: kernel disagrees "
                                  f"with attention_ref (max err "
                                  f"{errors[name]})")
-    return [entry for arch, tag, shape in FLASH_SERVING
-            for entry in flash_timings(torch, fa, attention_ref, gen, arch,
+    return [entry for archs, tag, shape in FLASH_SERVING
+            for entry in flash_timings(torch, fa, attention_ref, gen, archs,
                                        tag, shape, errors, routes)]
 
 
-def flash_timings(torch, fa, attention_ref, gen, arch, tag, shape, errors,
+def flash_timings(torch, fa, attention_ref, gen, archs, tag, shape, errors,
                   routes) -> list[dict]:
     """Device times at a serving prefill's shape, all in this call: the
     wgmma kernel on model-layout views (as the prefill hands them over),
@@ -266,11 +300,18 @@ def flash_timings(torch, fa, attention_ref, gen, arch, tag, shape, errors,
     ops.flash_mha pads it, and every call gets the padded inputs: the
     kernels and the plain version hide the keys past the prompt
     (``kv_len``), SDPA's causal mask hides them from the prompt's rows.
-    The bound counts the prompt's own work."""
+    With a window SDPA takes the causal window as a boolean mask.  The
+    bound counts the prompt's own work."""
     import torch.nn.functional as F
-    b, s, h, kh, d = shape
+    b, s, h, kh, d, window = shape
+    arch = archs[0]
     s_pad = -(-s // fa.BLOCK) * fa.BLOCK
     kv_len = s if s_pad != s else None
+    sdpa_args = {"is_causal": True}
+    if window is not None:
+        pos = torch.arange(s_pad, device="cuda")
+        sdpa_args = {"attn_mask": (pos[None] <= pos[:, None])
+                     & (pos[:, None] - pos[None] < window)}
     qm, km, vm = (F.pad(torch.randn((b, s, n, d), generator=gen,
                                     device="cuda"), (0, 0, 0, 0, 0, s_pad - s))
                   .to(torch.bfloat16) for n in (h, kh, kh))
@@ -278,42 +319,45 @@ def flash_timings(torch, fa, attention_ref, gen, arch, tag, shape, errors,
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
     q32, k32, v32 = (x.float() for x in (qc, kc, vc))
     ms = {
-        "sm90": graph_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                           kv_len=kv_len)),
+        "sm90": graph_ms(torch, lambda: fa.flash_attention(
+            q, k, v, window=window, kv_len=kv_len)),
         "simt_f32": graph_ms(torch, lambda: fa.flash_attention(
-            q32, k32, v32, kv_len=kv_len)),
+            q32, k32, v32, window=window, kv_len=kv_len)),
         "simt_bf16": graph_ms(torch, lambda: fa._launch(
-            "simt", qc, kc, vc, causal=True, window=None, kv_len=s)),
+            "simt", qc, kc, vc, causal=True, window=window, kv_len=s)),
         "plain_bf16": graph_ms(torch, lambda: attention_ref(
-            qc, kc, vc, kv_len=kv_len)),
+            qc, kc, vc, window=window, kv_len=kv_len)),
         "plain_f32": graph_ms(torch, lambda: attention_ref(
-            q32, k32, v32, kv_len=kv_len)),
+            q32, k32, v32, window=window, kv_len=kv_len)),
         "sdpa_bf16": graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qc, kc, vc, is_causal=True, enable_gqa=True)),
+            qc, kc, vc, enable_gqa=True, **sdpa_args)),
         "sdpa_f32": graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            q32, k32, v32, is_causal=True, enable_gqa=True)),
+            q32, k32, v32, enable_gqa=True, **sdpa_args)),
         "sm90_again": graph_ms(torch, lambda: fa.flash_attention(
-            q, k, v, kv_len=kv_len)),
+            q, k, v, window=window, kv_len=kv_len)),
     }
     entries = []
     for route, dtype, peak in (("sm90", "bfloat16", PEAK_BF16_FLOPS),
                                ("simt", "float32", PEAK_F32_FLOPS)):
         itemsize = 2 if dtype == "bfloat16" else 4
-        nbytes, flops = attention_work(b, h, kh, s, d, itemsize, True, None)
+        nbytes, flops = attention_work(b, h, kh, s, d, itemsize, True,
+                                       window)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         key = "bf16" if dtype == "bfloat16" else "f32"
         kernel_ms = ms["sm90" if route == "sm90" else "simt_f32"]
         padded = f" (padded to {s_pad})" if s_pad != s else ""
-        print(f"[kernels] flash_attention ({route}) {arch} B={b} S={s}"
-              f"{padded} H={h} KH={kh} D={d} {key} causal: kernel "
+        windowed = f" window {window}" if window else ""
+        print(f"[kernels] flash_attention ({route}) {tag} B={b} S={s}"
+              f"{padded} H={h} KH={kh} D={d} {key} causal{windowed}: kernel "
               f"{kernel_ms:.4f} ms, plain {ms['plain_' + key]:.4f} ms, sdpa "
               f"{ms['sdpa_' + key]:.4f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP)",
               flush=True)
         entries.append({
             "name": "flash_attention", "route": "cuda", "kernel_route": route,
-            "arch": arch, "dtype": dtype,
+            "arch": arch, "archs": list(archs), "shape": tag,
+            "window": window, "dtype": dtype,
             "source": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
                        if route == "sm90" else
                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
@@ -328,7 +372,7 @@ def flash_timings(torch, fa, attention_ref, gen, arch, tag, shape, errors,
         })
     entries[0]["ms_repeat"] = ms["sm90_again"]
     entries[0]["simt_bf16_ms"] = ms["simt_bf16"]
-    print(f"[kernels] flash_attention bf16 at {arch}'s shape: sm90 "
+    print(f"[kernels] flash_attention bf16 at {tag}'s shape: sm90 "
           f"{ms['sm90']:.4f} / {ms['sm90_again']:.4f} ms against the simt "
           f"kernel's {ms['simt_bf16']:.4f} ms on the same inputs", flush=True)
     return entries
@@ -479,7 +523,7 @@ def ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs, arch, shape,
                           ("simt", "ssd_scan.cu")):
         entries.append({
             "name": "ssd_scan", "route": "cuda", "kernel_route": route,
-            "arch": arch, "dtype": "bfloat16",
+            "arch": arch, "archs": [arch], "dtype": "bfloat16",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": "src/repro/kernels/ssd_scan.py:29",
             "max_abs_err": serving_err[route],
@@ -533,10 +577,11 @@ def rel_err(out, ref) -> float:
     return float((out - ref).abs().max() / ref.abs().max())
 
 
-def check_attn_prefill(torch, cfg, params, tokens) -> dict:
-    rel = rel_err(prefill_logits(torch, cfg, params, tokens,
+def check_attn_prefill(torch, cfg, params, tokens, context=CONTEXT) -> dict:
+    rel = rel_err(prefill_logits(torch, cfg, params, tokens, context,
                                  attn_impl="pallas"),
-                  prefill_logits(torch, cfg, params, tokens, attn_impl="xla"))
+                  prefill_logits(torch, cfg, params, tokens, context,
+                                 attn_impl="xla"))
     print(f"[serving] {cfg.name} prefill last logits, flash vs plain: rel "
           f"err {rel:.3e} (tol {PREFILL_REL_TOL})", flush=True)
     if not rel < PREFILL_REL_TOL:
@@ -882,17 +927,176 @@ def check_whisper_prefill(torch, cfg, params, tokens) -> dict:
     return out
 
 
+#: phase 4e: the remaining dense and VLM configs, at their published
+#: widths and depths, on phase 4's traffic, but gemma3-27b, whose 8 prompts
+#: of 1536 tokens in a context of 2048 cut every local layer's window of
+#: 1024 in the prefill and in each decode step
+DENSE_ARCHS = ("qwen3-1.7b", "gemma-2b", "gemma3-27b", "pixtral-12b")
+DENSE_TRAFFIC = {"gemma3-27b": (1536, 2048)}
+
+
+def dense_layer_errors(torch, cfg, params, tokens) -> dict[str, list[float]]:
+    """Each layer's self attention on the flash kernel, fed the plain
+    path's residual stream, against the flash kernel's plain version
+    (attention_ref, f32 scores) on the layer's own q/k/v with the layer's
+    window, relative to the layer's largest output after the output
+    projection ("self attention"); its distance to the model's plain
+    attention is kept under "plain path"."""
+    from repro_torch.kernels.ops import flash_mha
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import mlp, rmsnorm
+    plain = dataclasses.replace(cfg, attn_impl="xla")
+    positions = torch.arange(tokens.shape[1], device="cuda").expand(
+        tokens.shape)
+    rels = {"self attention": [], "plain path": []}
+    with torch.inference_mode():
+        x = transformer._embed(params, cfg, tokens, None)
+        for lp, (window, chunk) in zip(
+                transformer.layer_views(params["layers"]),
+                transformer._layer_masks(cfg)):
+            h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+            q, k, v = attention._project_qkv(lp, h, cfg, positions)
+            out = attention._out_proj(
+                flash_mha(q, k, v, causal=True, window=window), lp["wo"])
+            want = attention._out_proj(attention_ref(
+                *(t.transpose(1, 2) for t in (q, k, v)), causal=True,
+                window=window).transpose(1, 2), lp["wo"])
+            ref = attention.mha_full(lp, h, plain, positions, window=window,
+                                     chunk=chunk)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"layer {len(rels['plain path'])}: "
+                                     f"non-finite")
+            rels["self attention"].append(rel_err(out.float(), want.float()))
+            rels["plain path"].append(rel_err(out.float(), ref.float()))
+            x = x + ref
+            x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), plain)
+    return rels
+
+
+def check_dense_prefill(torch, cfg, params, tokens, context=CONTEXT) -> dict:
+    """A dense or VLM model's bf16 prefill, self attention on the flash
+    kernel ("sm90"), held layer by layer: each self attention against
+    attention_ref on its own q/k/v (dense_layer_errors), the model's plain
+    attention, which rounds the scores to bf16 before the softmax, printed
+    beside with no limit.  Then the last prefill logits, flash against
+    plain: with qk-norm (qwen3, gemma3) at PREFILL_REL_TOL.  Without it
+    (gemma-2b, pixtral) the reference's init draws wq [d, H, D] and wk
+    [d, KH, D] at a fan-in of their heads axis, 1/sqrt(H) and 1/sqrt(KH)
+    (gemma-2b's single KV head: wk at scale 1), so the random model's
+    scores are in the hundreds and it is chaotic, as zamba2 and whisper
+    are (check_hybrid_prefill, check_whisper_prefill): the logits are
+    printed with no limit as drawn, and held at PREFILL_REL_TOL on the
+    weights with wq and wk rescaled to the fan-in d_model (by sqrt(H / d)
+    and sqrt(KH / d)), which gives q and k unit entries and the scores
+    O(1), as in a trained model.  pixtral's registry.prefill with its 256
+    bf16 stub patches is compared the same way."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import registry
+    n = cfg.n_layers
+    with RouteCount(fa, {"sm90": n, "simt": 0},
+                    "bf16 self attention on the flash kernel"):
+        rels = dense_layer_errors(torch, cfg, params, tokens)
+    out = check_blocks(cfg, rels, SSM_LAYER_REL_TOL, "bf16")
+    worst = max(rels["plain path"])
+    out["bf16_self_attention_vs_plain_path_max_rel_err"] = worst
+    print(f"[serving] {cfg.name} bf16 self attention output, kernel vs the "
+          f"plain path (scores rounded to bf16): max rel err {worst:.3e}, "
+          f"median {float(np.median(rels['plain path'])):.3e} (no limit)",
+          flush=True)
+    if cfg.qk_norm:
+        out.update(check_attn_prefill(torch, cfg, params, tokens, context))
+        return out
+    layers = params["layers"]
+    scaled = {**params, "layers": {
+        **layers, "wq": layers["wq"] * math.sqrt(cfg.n_heads / cfg.d_model),
+        "wk": layers["wk"] * math.sqrt(cfg.n_kv_heads / cfg.d_model)}}
+    patches = None
+    if cfg.family == "vlm":
+        patches = registry.make_dummy_batch(
+            cfg, tokens.shape[0], 1, seed=SEED + 3, device="cuda")["patches"]
+    for fan_in, p in (("as_drawn", params), ("d_model", scaled)):
+        held = p is scaled
+        with RouteCount(fa, {"sm90": n, "simt": 0},
+                        "bf16 prefill on the flash kernel"):
+            logits = prefill_logits(torch, cfg, p, tokens, context,
+                                    attn_impl="pallas")
+        checks = {"prefill": rel_err(logits, prefill_logits(
+            torch, cfg, p, tokens, context, attn_impl="xla"))}
+        if patches is not None:
+            batch = {"tokens": tokens, "patches": patches}
+            got = {}
+            with torch.inference_mode():
+                for impl in ("pallas", "xla"):
+                    c = dataclasses.replace(cfg, attn_impl=impl)
+                    got[impl] = registry.prefill(p, c, batch).float()
+            checks["prefill_with_patches"] = rel_err(got["pallas"],
+                                                     got["xla"])
+        for what, rel in checks.items():
+            out[f"{what}_qk_fan_in_{fan_in}_kernel_vs_plain_rel_err"] = rel
+            print(f"[serving] {cfg.name} {what.replace('_', ' ')} last "
+                  f"logits, wq and wk "
+                  f"{'at fan-in d_model' if held else 'as drawn'}, flash vs "
+                  f"plain: rel err {rel:.3e} "
+                  f"({f'tol {PREFILL_REL_TOL}' if held else 'no limit'})",
+                  flush=True)
+            if held and not rel < PREFILL_REL_TOL:
+                raise AssertionError(f"{what} logits disagree: rel err {rel}")
+    del scaled
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense(torch, counters, arch, gen) -> dict:
+    """4e: one dense or VLM config at full width and depth on freed memory:
+    its init's own peak memory, then phase_serving with every prefill
+    layer on the flash kernel's sm90 route (gemma3-27b's 52 local layers
+    with their window), then the f32 smoke config's tokens on both
+    paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.module import param_bytes
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen.manual_seed(SEED)
+    params, _ = registry.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init = {"weights_gib": param_bytes(params) / 2**30,
+            "init_max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30}
+    print(f"[serving] {arch}: {init['weights_gib']:.3f} GiB of bf16 "
+          f"weights, init peak {init['init_max_memory_allocated_gib']:.3f} "
+          f"GiB", flush=True)
+    prompt_len, context = DENSE_TRAFFIC.get(arch, (PROMPT_LEN, CONTEXT))
+    n = cfg.n_layers
+    n_windowed = sum(w is not None for w, _ in transformer._layer_masks(cfg))
+    serving = phase_serving(
+        torch, counters, cfg, params,
+        functools.partial(check_dense_prefill, context=context),
+        {"flash_attention": n, "ssd_scan": 0},
+        {"flash_attention": {"sm90": n, "simt": 0},
+         "ssd_scan": {"sm90": 0, "simt": 0}},
+        prompt_len=prompt_len, context=context, want_windowed=n_windowed)
+    serving.update(init)
+    del params
+    torch.cuda.empty_cache()
+    phase_smoke_tokens(torch, arch, ("attn_impl",))
+    return serving
+
+
 def phase_serving(torch, counters, cfg, params, check_prefill,
                   want_launches, want_routes, prompt_len=PROMPT_LEN,
-                  context=CONTEXT) -> dict:
+                  context=CONTEXT, want_windowed=0) -> dict:
     """Full-width serving through ServeEngine.run: ``check_prefill`` holds
     the prefill's last logits on the kernel path against the plain path,
     then the run goes with every kernel's launch count set to 0 just
     before it and read just after; ``want_launches`` maps each kernel
-    module's name to the launches the run must make, and ``want_routes``
-    each module's name to its launches by route.  For the encoder-decoder
-    the encoder (over the engine's zero frames) is timed on its own before
-    the decoder's prefill."""
+    module's name to the launches the run must make, ``want_routes`` each
+    module's name to its launches by route, and ``want_windowed`` is the
+    flash launches with a sliding window among them.  For the
+    encoder-decoder the encoder (over the engine's zero frames) is timed on
+    its own before the decoder's prefill."""
     from repro_torch.core.mig_h100 import MigH100Backend
     from repro_torch.models import registry
     from repro_torch.serving.engine import EngineConfig, ServeEngine
@@ -920,9 +1124,11 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
                          backend=MigH100Backend(), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    fa = counters["flash_attention"]
     for mod in counters.values():
         mod.launches = 0
         mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    fa.windowed_launches = 0
     t0 = time.perf_counter()
     out = engine.run(reqs)
     torch.cuda.synchronize()
@@ -930,12 +1136,15 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     launches = {name: mod.launches for name, mod in counters.items()}
     routes = {name: dict(mod.launches_by_route)
               for name, mod in counters.items()}
+    windowed = fa.windowed_launches
     print(f"[serving] {cfg.name} kernel launches in ServeEngine.run: "
-          f"{launches}, by route {routes} (layers {cfg.n_layers})",
-          flush=True)
-    if launches != want_launches or routes != want_routes:
-        raise AssertionError(f"launches {launches}, by route {routes}; "
-                             f"want {want_launches}, {want_routes}")
+          f"{launches}, by route {routes}, flash with a window {windowed} "
+          f"(layers {cfg.n_layers})", flush=True)
+    if (launches != want_launches or routes != want_routes
+            or windowed != want_windowed):
+        raise AssertionError(f"launches {launches}, by route {routes}, "
+                             f"windowed {windowed}; want {want_launches}, "
+                             f"{want_routes}, {want_windowed}")
     n_tok = sum(len(r.generated) for r in out)
     if n_tok != N_REQ * MAX_NEW or not all(
             0 <= t < cfg.vocab for r in out for t in r.generated):
@@ -952,6 +1161,7 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
         "accountant_peak_in_use_gb": engine.accountant.peak_in_use / 2**30,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches, "launches_by_route": routes,
+        "flash_windowed_launches": windowed,
         **checks,
     }
     print(f"[serving] {json.dumps(stats)}", flush=True)
@@ -991,12 +1201,20 @@ def phase_smoke_tokens(torch, arch, impl_fields) -> None:
 
 
 def set_launches(entries, serving) -> None:
-    """Each kernels-line entry of the served arch takes its route's launch
-    count from that arch's ServeEngine.run."""
+    """Each kernels-line entry of a shape the served arch calls takes its
+    route's launch count from that arch's ServeEngine.run (on the sm90
+    route the windowed launches go to the windowed shape, the rest to the
+    other); ``launches`` sums the runs of the archs sharing the shape."""
     for entry in entries:
-        if entry["arch"] == serving["arch"]:
-            entry["launches"] = serving["launches_by_route"][entry["name"]][
-                entry["kernel_route"]]
+        if serving["arch"] not in entry["archs"]:
+            continue
+        n = serving["launches_by_route"][entry["name"]][entry["kernel_route"]]
+        if entry["name"] == "flash_attention" and \
+                entry["kernel_route"] == "sm90":
+            windowed = serving["flash_windowed_launches"]
+            n = windowed if entry["window"] else n - windowed
+        entry.setdefault("launches_by_arch", {})[serving["arch"]] = n
+        entry["launches"] = sum(entry["launches_by_arch"].values())
 
 
 def phase_restart(cfg, params) -> list[str]:
@@ -1345,6 +1563,12 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         phase_smoke_tokens(torch, AUDIO_ARCH, ("attn_impl",))
+
+    # 4e. the remaining dense and VLM configs at full width and depth, the
+    # prefill on the flash kernel, each on its own memory
+    for arch in DENSE_ARCHS:
+        with clock(f"4e {arch} serving"):
+            set_launches(flash, phase_dense(torch, counters, arch, gen))
 
     # 6. training on the plain path: full-width qwen3, card vs CPU parity,
     # and the kernels' refusal of autograd

@@ -5,6 +5,10 @@ from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 
 ARCH_MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "whisper-medium": "repro_torch.configs.whisper_medium",

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel, launched by flash_attention's pallas_call) on the bf16
-// route at head dims 64, 112 and 128; every other (dtype, head dim) goes to
-// flash_attention.cu (kernels/flash_attention.py::route decides).  It
+// route at head dims 64, 112, 128 and 256; every other (dtype, head dim)
+// goes to flash_attention.cu (kernels/flash_attention.py::route decides).  It
 // computes the same function: softmax(q k^T / sqrt(D) + mask) v with the
 // mask k <= q (causal) and q - k < window, keys at positions >= kv_len
 // hidden, the KV head h / (H/KH), and an online softmax whose running max
@@ -15,25 +15,37 @@
 // causal pairs (8.7 us at the 989 TFLOP/s bf16 tensor-core peak), so the
 // bytes set the bound, and both products must run on the tensor cores to
 // come near it.  The CUDA-core kernel (flash_attention.cu) is 56x that.
+// At gemma-2b's (B=8, S=512, H=8, KH=1, D=256: MQA) the bytes are
+// 37,748,736 (11.3 us) and the FLOPs the same 8.61 G (8.7 us).
 //
 // Design.
 // - Blocks of two consumer warpgroups (128 threads each, one 64-row wgmma
 //   M tile each).  Where H/KH is even, a block owns (batch row, KV head,
 //   two query heads of its group, 64-row q tile): both warpgroups see the
 //   same positions, so each K/V tile is loaded once for two heads and
-//   causality leaves them equal work.  Where H/KH is odd, a block owns two
-//   consecutive q tiles of one head.  Q tiles are issued heaviest first
-//   (blockIdx.y reversed, y the slowest grid dimension).  127 registers a
-//   thread and 97 KB of shared memory at D=128 let two blocks share an SM.
+//   causality leaves them equal work (MQA, gemma-2b's KH=1 with H=8: each
+//   K/V tile serves two of the eight heads).  Where H/KH is odd, a block
+//   owns two consecutive q tiles of one head.  Q tiles are issued heaviest
+//   first (blockIdx.y reversed, y the slowest grid dimension).  127
+//   registers a thread and 97 KB of shared memory at D=128 let two blocks
+//   share an SM.
+// - D=256 (gemma-2b) runs one block an SM: its f32 output accumulator is
+//   128 registers a thread by itself (m64n256), so the block gets the
+//   whole register file (at most 255 a thread; __launch_bounds__ with one
+//   block), and its tiles take (2 Q + 2 stages x (K + V)) x 4 panels x 8
+//   KB + 1 KB = 197,632 bytes of the 227 KB a block may have.  P V runs as
+//   two m64n128 products a k step, one per 128-column half of the output
+//   (panels 0-1 and 2-3 of V), so the accumulator is two 64-float chunks.
 // - Operands reach shared memory by TMA (cp.async.bulk.tensor, 4-d maps
 //   over [B, heads, S, D] views with any strides that are multiples of 16
 //   bytes), in 128-byte-swizzled panels of 64 rows x 64 bf16 columns: a
-//   D=128 tile is two panels.  D=112 (zamba2) runs on the D=128 code with
-//   tensor maps of inner extent 112: TMA fills columns 112-127 of the second
-//   panel with zeros on every load (the box still credits its full bytes to
-//   the barrier) and clips them on the output store.  Zero columns add
-//   nothing to Q K^T and give output columns that are never stored; the
-//   scale is 1/sqrt of the true D.  K/V tiles go through a ring of two stages,
+//   D=128 tile is two panels, a D=256 tile four.  D=112 (zamba2) runs on
+//   the D=128 code with tensor maps of inner extent 112: TMA fills columns
+//   112-127 of the second panel with zeros on every load (the box still
+//   credits its full bytes to the barrier) and clips them on the output
+//   store.  Zero columns add nothing to Q K^T and give output columns that
+//   are never stored; the scale is 1/sqrt of the true D.  K/V tiles go
+//   through a ring of two stages,
 //   K and V of a stage each with an mbarrier (expect-tx bytes, then a wait
 //   on its phase), so Q K^T starts before V has landed; the loads of the
 //   next tile fly while this one's products run.  Each
@@ -52,7 +64,8 @@
 // - O += P V: P is rounded to bf16 in registers, where the f32 accumulator
 //   layout of the first product is the A-fragment layout of the second, so
 //   P never touches shared memory; V is the MN-major B operand ([keys, D]
-//   row-major, transpose bit set), one m64nDk16 per 16 keys over its panels.
+//   row-major, transpose bit set), one m64nDk16 per 16 keys over its panels
+//   (two m64n128k16 at D=256).
 // - The output goes through the warpgroup's Q tile in shared memory (free
 //   by then, same swizzle) and out by TMA into a [B, Sq, H, D] buffer, the
 //   model's layout, so the caller needs no transpose copy.
@@ -315,13 +328,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // One block of two warpgroups: NWG query heads of one KV head (2 or 1)
 // times QT = 2 / NWG consecutive 64-row q tiles; warpgroup w takes head
 // w % NWG and tile w / NWG.  The bound below holds a thread to 128
-// registers, so two blocks fit on an SM.
+// registers up to D=128, so two blocks fit on an SM; at D=256 one block
+// has the SM.
 //
 // The accumulator fragment of m64nN (f32): thread t of the warpgroup holds
 // rows r0 = 16 (t/32) + (t%32)/4 and r0 + 8; element 4j + 2i + c sits at
 // row r0 + 8i, column 8j + 2 (t%4) + c.
 template <int D, int NWG>
-__global__ void __launch_bounds__(WGS * 128, 2)
+__global__ void __launch_bounds__(WGS * 128, D > 128 ? 1 : 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
@@ -406,10 +420,16 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_wg = q_s + wg * TILE_BYTES;
 
   // O: element 32 p + 4 j + 2 i + c of panel p sits at column 64 p + 8 j
-  // + 2 (t%4) + c, in the m64nD fragment order
-  float acc[D / 2];
+  // + 2 (t%4) + c, in the m64nD fragment order, held as NCH chunks of AN
+  // floats, one per P V product (m64n256 as two m64n128 at D=256)
+  constexpr int AN = D > 128 ? 64 : D / 2;
+  constexpr int NCH = D / 2 / AN;
+  float acc[NCH][AN];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+    for (int e = 0; e < AN; ++e) acc[ch][e] = 0.f;
+  }
   float m_run[2] = {-INFINITY, -INFINITY};  // log2 domain
   float l_run[2] = {0.f, 0.f};              // this thread's share of l
 
@@ -484,7 +504,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e / 2) % 2];
+      for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+        for (int e = 0; e < AN; ++e) acc[ch][e] *= alpha[(e / 2) % 2];
+      }
       // P as the A operand: k step kk holds the accumulator's columns
       // 16 kk .. 16 kk + 15, elements 8 kk .. 8 kk + 7 in order
       uint32_t pa[4][4];
@@ -497,18 +520,26 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // O += P V: four k steps of 16 keys (2 KB of each V panel), each one
-      // wgmma over all D columns
+      // wgmma a chunk of the output, over its 2 AN columns (chunk ch reads
+      // V from panel 2 ch on)
       const uint32_t v_t = v_s + stage * TILE_BYTES;
       mbar_wait(smem_u32(&bars[STAGES + stage]), (i / STAGES) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_rs(acc, pa[kk], sw128_desc(v_t + kk * 2048, PANEL_BYTES));
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          wgmma_rs(acc[ch], pa[kk],
+                   sw128_desc(v_t + ch * 2 * PANEL_BYTES + kk * 2048,
+                              PANEL_BYTES));
+        }
       }
-      fence_regs(acc);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) fence_regs(acc[ch]);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(acc);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) fence_regs(acc[ch]);
     }
 
     // This warpgroup is done reading the stage; the last of the block's
@@ -541,11 +572,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int p = 0; p < NP; ++p) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int e = 32 * p + 4 * j + 2 * r;
+        const int e = 32 * p + 4 * j + 2 * r;    // chunk e / AN
         const uint32_t dst = q_wg + p * PANEL_BYTES + row * 128 +
                              ((j ^ (row & 7)) << 4) + c0 * 2;
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
-                     "r"(pack_bf16(acc[e] * inv[r], acc[e + 1] * inv[r]))
+                     "r"(pack_bf16(acc[e / AN][e % AN] * inv[r],
+                                   acc[e / AN][e % AN + 1] * inv[r]))
                      : "memory");
       }
     }
@@ -605,7 +637,7 @@ bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// D is the code's panel width (64 or 128); d the tensors' head dim, at most
+// D is the code's width (64, 128 or 256); d the tensors' head dim, at most
 // D, which sets the softmax scale.
 template <int D, int NWG>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk,
@@ -651,9 +683,9 @@ extern "C" {
 // q: [B,H,Sq,D] and k/v: [B,KH,Sk,D] bf16 views given by their element
 // strides (batch, head, position; D contiguous; every stride and base
 // address a multiple of 16 bytes); o: a contiguous [B,Sq,H,D] bf16 buffer.
-// Sq and Sk are multiples of 64, D is 64, 112 or 128.  Returns 0 on success,
-// else a cudaError_t code or one of the ERR_ codes above.  window <= 0
-// means none.
+// Sq and Sk are multiples of 64, D is 64, 112, 128 or 256.  Returns 0 on
+// success, else a cudaError_t code or one of the ERR_ codes above.
+// window <= 0 means none.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* o, int B, int H, int KH, int Sq, int Sk,
                              int D, long long qsb, long long qsh,
@@ -664,7 +696,7 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   const long long strides[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   bool ok = B > 0 && H > 0 && KH > 0 && H % KH == 0 && Sq > 0 && Sk > 0 &&
             Sq % BM == 0 && Sk % BN == 0 && Sq / BM <= 65535 && kv_len >= 0 &&
-            kv_len <= Sk && (D == 64 || D == 112 || D == 128);
+            kv_len <= Sk && (D == 64 || D == 112 || D == 128 || D == 256);
   for (long long s : strides) ok = ok && aligned16(s);
   const void* ptrs[4] = {q, k, v, o};
   for (const void* p : ptrs) {
@@ -685,6 +717,10 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   if (D == 64) {
     return dispatch<64>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,
                         window, s);
+  }
+  if (D == 256) {
+    return dispatch<256>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,
+                         window, s);
   }
   // D = 112 runs on the 128-column code, its second panel zero-filled
   return dispatch<128>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,

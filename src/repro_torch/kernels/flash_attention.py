@@ -7,14 +7,15 @@ the output in q's dtype.  A tensor on the CPU goes to the plain version
 of two kernels, by :func:`route`, a function of dtype and head dim alone
 decided before the launch:
 
-- ``"sm90"``: bf16 at D in ``SM90_HEAD_DIMS`` (64, 112, 128) goes to
+- ``"sm90"``: bf16 at D in ``SM90_HEAD_DIMS`` (64, 112, 128, 256) goes to
   ``csrc/flash_attention_sm90.cu`` (bf16 ``wgmma`` fed by TMA; D=112 runs
-  on its 128-column code with the last 16 columns zero-filled by TMA).  It
+  on its 128-column code with the last 16 columns zero-filled by TMA;
+  D=256, gemma-2b's, on its own instantiation, one block an SM).  It
   takes q/k/v views with D contiguous and the other strides multiples of
   16 bytes, and returns a [B,H,Sq,D] view of a [B,Sq,H,D] buffer;
-- ``"simt"``: every other pair (f32 at D 32/64/112/128/256, bf16 at 32
-  and 256) goes to ``csrc/flash_attention.cu`` (CUDA-core f32 products, as
-  f32 parity at 2e-5 needs).  It takes contiguous q/k/v.
+- ``"simt"``: every other pair (f32 at D 32/64/112/128/256, bf16 at 32)
+  goes to ``csrc/flash_attention.cu`` (CUDA-core f32 products, as f32
+  parity at 2e-5 needs).  It takes contiguous q/k/v.
 
 A failed build or launch on either route raises; no call is retried on
 the other kernel.
@@ -36,13 +37,14 @@ BLOCK = 64
 HEAD_DIMS = (32, 64, 112, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the bf16 wgmma kernel takes
-SM90_HEAD_DIMS = (64, 112, 128)
+SM90_HEAD_DIMS = (64, 112, 128, 256)
 ROUTES = ("sm90", "simt")
 
-#: kernel launches in this process, in all and by route; only CUDA calls
-#: count
+#: kernel launches in this process, in all and by route, and of them the
+#: launches with a sliding window; only CUDA calls count
 launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
+windowed_launches = 0
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -144,7 +146,7 @@ def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, *, causal: bool, window: int | None,
             kv_len: int) -> torch.Tensor:
     """Launch the named route's kernel on checked CUDA tensors."""
-    global launches
+    global launches, windowed_launches
     fn, err = _entry(route_name)
     b, h, sq, d = q.shape
     kh, sk = k.shape[1], k.shape[2]
@@ -171,4 +173,6 @@ def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
                            f"{err(rc).decode()} (code {rc})")
     launches += 1
     launches_by_route[route_name] += 1
+    if window is not None:
+        windowed_launches += 1
     return out

@@ -2,12 +2,15 @@
 ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch qwen3-0.6b | mamba2-2.7b | zamba2-7b | whisper-medium]
+        [--arch qwen3-0.6b | qwen3-1.7b | gemma-2b | gemma3-27b |
+                pixtral-12b | mamba2-2.7b | zamba2-7b | whisper-medium]
 
 Builds chip_smoke.py's serving configuration for the arch (full width,
 random bf16 weights from seed 0, ``attn_impl`` and ``ssm_impl`` "pallas",
 8 prompts of 512 tokens and context 1024; whisper-medium 8 prompts of 224
-tokens and context 448), then profiles its windows, each after a warm-up:
+tokens and context 448; gemma3-27b 8 prompts of 1536 tokens and context
+2048, so that its local layers cut their 1024-token window), then
+profiles its windows, each after a warm-up:
 for whisper-medium first the encoder (``registry.prefill_encoder`` over
 zero frames, as the engine runs it); one ``registry.prefill_caches`` over
 the prompt batch (the engine's prefill call); and 16 decode steps as the
@@ -72,7 +75,7 @@ COUNTED = ("flash", "ssd", "copy")
 SEED = 0
 REQUESTS, DECODE_STEPS = 8, 16
 #: (prompt tokens, context) of each arch's serving phase in chip_smoke.py
-SHAPES = {"whisper-medium": (224, 448)}
+SHAPES = {"whisper-medium": (224, 448), "gemma3-27b": (1536, 2048)}
 DEFAULT_SHAPE = (512, 1024)
 
 

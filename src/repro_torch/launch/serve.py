@@ -6,7 +6,11 @@
 
 Runs on the card (``--device cuda``, the default) on an H100 MIG backend,
 with the prefill on the hand-written kernels: flash attention for the
-dense models and for the decoder of the whisper encoder-decoder (``--arch
+dense and VLM models (``--arch`` qwen3-0.6b, qwen3-1.7b, gemma-2b, whose
+head dim 256 and single KV head take the kernel's D=256 code, gemma3-27b,
+whose local layers pass their sliding window to the kernel, and
+pixtral-12b, served on text tokens as the reference's engine serves it)
+and for the decoder of the whisper encoder-decoder (``--arch
 whisper-medium``, whose encoder runs first, plain, on zero frames as the
 reference's engine gives it), the SSD chunk scan for mamba2 (``--arch
 mamba2-2.7b``), both for the zamba2 hybrid (``--arch zamba2-7b``).  With

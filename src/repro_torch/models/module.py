@@ -13,6 +13,9 @@ from typing import Any
 import torch
 
 DEFAULT_DTYPE = torch.bfloat16
+#: the most elements one normal draw takes at once (16 GiB of f32); above
+#: it a tensor is drawn slice by slice (ParamBuilder._normal)
+DRAW_LIMIT = 2 ** 32
 
 
 class ParamBuilder:
@@ -47,13 +50,32 @@ class ParamBuilder:
             if scale is None:
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(fan_in, 1))
-            gen = None if self.device.type == "meta" else self.generator
-            value = (torch.randn(shape, generator=gen, dtype=torch.float32,
-                                 device=self.device) * scale).to(dtype)
+            value = self._normal(shape, scale, dtype)
         else:
             raise ValueError(init)
         self.params[name] = value
         self.specs[name] = tuple(axes)
+
+    def _normal(self, shape: tuple[int, ...], scale: float,
+                dtype: torch.dtype) -> torch.Tensor:
+        """N(0, scale^2) drawn in f32 and cast.  A tensor of more than
+        DRAW_LIMIT elements is drawn one slice of its leading axis at a
+        time into its final dtype, so the f32 draw never holds it whole
+        (gemma3-27b's stacked MLP weights are 7.2e9 elements: 28.7 GB in
+        f32, twice over with the scaled copy)."""
+        gen = None if self.device.type == "meta" else self.generator
+
+        def draw(part_shape):
+            return (torch.randn(part_shape, generator=gen,
+                                dtype=torch.float32, device=self.device)
+                    * scale).to(dtype)
+
+        if math.prod(shape) <= DRAW_LIMIT or len(shape) < 2:
+            return draw(shape)
+        value = torch.empty(shape, dtype=dtype, device=self.device)
+        for part in value:
+            part.copy_(draw(part.shape))
+        return value
 
     def sub(self, name: str) -> "ParamBuilder":
         child = ParamBuilder(self.generator, self.device, self.dtype)

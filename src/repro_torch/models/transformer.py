@@ -55,10 +55,11 @@ def _layer_masks(cfg: ModelConfig) -> list[tuple[int | None, int | None]]:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm", "ssm") or cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense decoder, the ssm stack, "
-            f"the hybrid (models/hybrid.py) and the encoder-decoder "
-            f"(models/encdec.py) only (family={cfg.family}, "
-            f"n_experts={cfg.n_experts})")
+            f"{cfg.name}: the port runs the dense and VLM decoders "
+            f"(qwen3, gemma, gemma3, pixtral), the ssm stack (mamba2), the "
+            f"hybrid (models/hybrid.py, zamba2) and the encoder-decoder "
+            f"(models/encdec.py, whisper) only; no MoE (family="
+            f"{cfg.family}, n_experts={cfg.n_experts})")
 
 
 def layer_views(stack: dict) -> list[dict]:

@@ -61,8 +61,8 @@ def test_kernel_matches_plain(card, dtype, b, s, h, kh, d, causal, window):
     out = flash_mha(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    # f32 at any D, and bf16 at D 32 and 256, go to the CUDA-core kernel
-    sm90 = dtype == torch.bfloat16 and d in (64, 112, 128)
+    # f32 at any D, and bf16 at D 32, go to the CUDA-core kernel
+    sm90 = dtype == torch.bfloat16 and d in (64, 112, 128, 256)
     assert _moved(by_route) == {"sm90": int(sm90), "simt": int(not sm90)}
     ref = _bhsd(attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
                               window=window))
@@ -74,7 +74,9 @@ def test_kernel_matches_plain(card, dtype, b, s, h, kh, d, causal, window):
 # 112 (on the 128-column code, the last 16 columns zero-filled) and 128,
 # GQA groups of 1, 2 and 8, causal, windows of 64 and 128, non-causal
 # ragged (the pad hidden by kv_len), S of 64, 200 (padded), 512 and 1024;
-# zamba2's prefill shape (MHA at D=112: one head over two q tiles a block)
+# zamba2's prefill shape (MHA at D=112: one head over two q tiles a block);
+# D=256 (one block an SM): gemma-2b's prefill shape (MQA, KH=1), ragged S,
+# a window, an odd group (one head over two q tiles), S=1024, non-causal
 SM90_CASES = [
     (2, 512, 16, 8, 128, True, None), (1, 64, 2, 2, 64, True, None),
     (1, 200, 8, 1, 128, True, None), (2, 512, 4, 4, 64, True, 64),
@@ -82,7 +84,10 @@ SM90_CASES = [
     (1, 200, 2, 2, 64, False, None), (1, 1024, 16, 2, 128, True, None),
     (1, 512, 8, 8, 128, True, 128), (2, 64, 16, 2, 64, False, None),
     (8, 512, 32, 32, 112, True, None), (1, 200, 4, 4, 112, True, None),
-    (2, 200, 4, 2, 112, False, None), (1, 512, 4, 4, 112, True, 128)]
+    (2, 200, 4, 2, 112, False, None), (1, 512, 4, 4, 112, True, 128),
+    (8, 512, 8, 1, 256, True, None), (2, 200, 8, 1, 256, True, None),
+    (2, 512, 8, 1, 256, True, 128), (1, 512, 3, 1, 256, True, None),
+    (1, 1024, 8, 1, 256, True, None), (1, 200, 4, 2, 256, False, None)]
 
 
 @pytest.mark.cuda

@@ -30,7 +30,7 @@ WANT_ROUTE = {
     (torch.float32, 256): "simt",
     (torch.bfloat16, 32): "simt", (torch.bfloat16, 64): "sm90",
     (torch.bfloat16, 112): "sm90", (torch.bfloat16, 128): "sm90",
-    (torch.bfloat16, 256): "simt",
+    (torch.bfloat16, 256): "sm90",
 }
 
 
@@ -68,6 +68,10 @@ CASES = [
     # zamba2's head dim, MHA: bf16 on the sm90 route, f32 on simt
     ("bf16-d112-mha-ragged-s100", 2, 100, 2, 2, 112, "bf16", None),
     ("f32-d112-mha-simt", 1, 128, 2, 2, 112, "f32", None),
+    # gemma-2b's head dim, MQA: bf16 on the sm90 route, f32 on simt
+    ("bf16-d256-mqa-ragged-s100", 1, 100, 4, 1, 256, "bf16", None),
+    ("bf16-d256-mqa-window32", 1, 192, 8, 1, 256, "bf16", 32),
+    ("f32-d256-mqa-simt", 1, 128, 2, 1, 256, "f32", None),
 ]
 
 
@@ -101,6 +105,17 @@ def test_tma_strides_of_model_layout_views():
     cache = torch.zeros((2, 256, 4, 64), dtype=torch.bfloat16)
     view = cache[:, :128].transpose(1, 2)
     assert fa.tma_strides(view) == (256 * 4 * 64, 64, 4 * 64)
+
+
+def test_tma_strides_of_an_mqa_cache_slice():
+    """gemma-2b's K/V: the first S positions of a [B,C,1,256] cache layer,
+    transposed; its one KV head is never walked."""
+    cache = torch.zeros((3, 2, 1024, 1, 256), dtype=torch.bfloat16)
+    view = cache[1][:, :200].transpose(1, 2)
+    assert view.shape == (2, 1, 200, 256)
+    strides = fa.tma_strides(view)
+    assert strides == (1024 * 256, 200 * 256, 256)
+    assert all(st % 8 == 0 for st in strides)
 
 
 def test_tma_strides_of_a_size_one_dimension_are_never_walked():

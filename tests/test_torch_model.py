@@ -90,11 +90,12 @@ def test_prefill_logits_are_forward_last_position(weights):
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_vlm_forward_with_patches_matches_reference(impl):
     """The VLM branch: stub patch embeddings override the first positions
-    (pixtral's smoke config, built field for field in the port)."""
-    from repro_torch.configs import ModelConfig
+    (pixtral's smoke config, the port's own copy)."""
     ref_cfg = ref_get_smoke_config("pixtral-12b")
-    cfg = dataclasses.replace(ModelConfig(**dataclasses.asdict(ref_cfg)),
+    cfg = dataclasses.replace(get_smoke_config("pixtral-12b"),
                               attn_impl=impl)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        dataclasses.replace(ref_cfg, attn_impl=impl))
     ref_p, _ = ref_registry.init_params(jax.random.PRNGKey(4), ref_cfg)
     ref_p = ref_cast_tree(ref_p, jnp.float32)
     p = params_from_numpy(jax.device_get(ref_p), cfg)
