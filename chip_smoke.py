@@ -13,7 +13,8 @@ Phases, each raising on failure (the script then exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving paths' shapes (flash at qwen3's, zamba2's, whisper's,
    gemma-2b's (D=256, MQA), gemma3-27b's local (window 1024 over 1536
-   positions) and global layers' and pixtral's; SSD at mamba2's and
+   positions) and global layers', pixtral's, grok-1's (GQA 6:1) and
+   llama4-maverick's global layers' (GQA 5:1); SSD at mamba2's and
    zamba2's) and a few edge cases, with times at each serving shape; the
    flash cases go to both routes (bf16 at D 64/112/128/256 to the wgmma
    kernel "sm90", f32 to the CUDA-core kernel "simt"), and so do the
@@ -61,6 +62,18 @@ Phases, each raising on failure (the script then exits non-zero):
    printed as drawn, see check_dense_prefill; pixtral's also with 256 stub
    patches), the init's own peak memory, then the f32 smoke config's
    greedy tokens on both paths;
+4f. serving: the MoE configs at their published widths and expert counts,
+   cut in depth to fit the card (configs.ONE_CARD_LAYERS), each on freed
+   memory through ServeEngine.run: grok-1-314b, 6 of 64 layers (6 flash
+   launches, GQA 6:1), and llama4-maverick-400b-a17b, 4 of 48 (2 dense, 2
+   MoE of 128 experts; 1 flash launch on its global layer, GQA 5:1, the 3
+   chunked layers plain), all on "sm90", none on "simt", no SSD: each
+   flash layer's bf16 self attention against its plain version, each MoE
+   layer's moe_tokens (the engine's expert-by-expert dispatch and combine)
+   against moe_layer at S=1 and its routes on the card against the CPU's
+   on the same bf16 inputs, the last logits flash vs plain with the tokens
+   whose routes flip counted (see check_moe_prefill), the init's own peak
+   memory, then the f32 smoke config's greedy tokens on both paths;
 6. training, on the plain path (the kernels have no backward and refuse
    autograd): (a) qwen3-0.6b at full width, bf16 params and f32 moments,
    8 steps of B=8, S=512 through make_train_step as launch/train.py runs
@@ -216,8 +229,10 @@ def flash_route(torch, dtype, d) -> str:
 #: decoder (MHA at D=64; its 224 prompt positions padded to 256 by
 #: ops.flash_mha, the kernel hiding keys from 224 on), gemma-2b (MQA at
 #: D=256: the kernel's one-block-an-SM code), gemma3-27b's 52 local layers
-#: (a window of 1024 over 1536 prompt tokens) and its 10 global layers, and
-#: pixtral-12b (GQA 4:1, D=128)
+#: (a window of 1024 over 1536 prompt tokens) and its 10 global layers,
+#: pixtral-12b (GQA 4:1, D=128), grok-1-314b (GQA 6:1, two heads a block)
+#: and llama4-maverick's global layers (GQA 5:1, the first odd group above
+#: 1: one head over two q tiles a block, K/V head h // 5)
 FLASH_SERVING = [
     (("qwen3-0.6b", "qwen3-1.7b"), "prefill", (8, 512, 16, 8, 128, None)),
     (("zamba2-7b",), "zamba2", (8, 512, 32, 32, 112, None)),
@@ -225,7 +240,10 @@ FLASH_SERVING = [
     (("gemma-2b",), "gemma2b", (8, 512, 8, 1, 256, None)),
     (("gemma3-27b",), "gemma3-local", (8, 1536, 32, 16, 128, 1024)),
     (("gemma3-27b",), "gemma3-global", (8, 1536, 32, 16, 128, None)),
-    (("pixtral-12b",), "pixtral", (8, 512, 32, 8, 128, None))]
+    (("pixtral-12b",), "pixtral", (8, 512, 32, 8, 128, None)),
+    (("grok-1-314b",), "grok", (8, 512, 48, 8, 128, None)),
+    (("llama4-maverick-400b-a17b",), "llama4-global",
+     (8, 512, 40, 8, 128, None))]
 
 
 def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
@@ -257,6 +275,10 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
         ("d256-mqa-s1024", 2, 1024, 8, 1, 256, torch.bfloat16, True, None),
         ("d256-non-causal-s200", 2, 200, 8, 2, 256, torch.bfloat16, False,
          None),
+        # the MoE configs' GQA groups of 6 and 5 at a ragged S
+        ("grok-ragged-s200", 8, 200, 48, 8, 128, torch.bfloat16, True, None),
+        ("llama4-global-ragged-s200", 8, 200, 40, 8, 128, torch.bfloat16,
+         True, None),
     ]
     errors, routes = {}, {}
     for name, b, s, h, kh, d, dtype, causal, window in cases:
@@ -1085,6 +1107,242 @@ def phase_dense(torch, counters, arch, gen) -> dict:
     return serving
 
 
+#: tokens a moe_layer call takes in the MoE check: at S=1 its dispatch
+#: holds [E, tokens, k, d_ff] activations (llama4: 128 x 256 x 8192)
+MOE_CHECK_TOKENS = 256
+#: the MoE check holds the card's routes to the CPU's on the same bf16
+#: inputs: the two f32 router products differ only in the order of their
+#: sums (~1e-7 in a probability), so a route may differ only at a token
+#: whose k-th and next expert's CPU probabilities lie closer than this
+ROUTE_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def recorded_routes(moe):
+    """The experts [tokens, k] of every ``moe.top_k_gates`` call made
+    inside the block, in call order (moe_tokens and moe_layer both route
+    through it)."""
+    calls = []
+    real = moe.top_k_gates
+
+    def record(probs, k):
+        gates, experts = real(probs, k)
+        calls.append(experts.reshape(-1, k))
+        return gates, experts
+
+    moe.top_k_gates = record
+    try:
+        yield calls
+    finally:
+        moe.top_k_gates = real
+
+
+def moe_layer_errors(torch, cfg, params, tokens) -> dict[str, list[float]]:
+    """Each layer of a MoE config, fed the plain path's residual stream:
+    its self attention on the flash kernel (the layers without a chunk;
+    llama4's chunked layers are plain on both paths) against the flash
+    kernel's plain version (attention_ref, f32 scores) on its own q/k/v
+    ("self attention"), its distance to the model's plain attention kept
+    under "plain path"; and each MoE layer's moe_tokens, as the engine runs
+    it, against moe_layer with every token a group of one, MOE_CHECK_TOKENS
+    tokens a call, on the same bf16 inputs ("moe").  Relative to each
+    output's largest entry.  Both route through ``moe.top_k_routes`` on the
+    same tensor, so that comparison covers the dispatch and combine
+    arithmetic on the card, not the routing; the card's routes are held
+    instead to the CPU's, computed from the same bf16 inputs and router:
+    a route may differ only at a near tie (ROUTE_TIE).  Returns the errors
+    and, for each MoE layer, the tokens whose routes differ from the CPU's
+    and the tokens at a near tie."""
+    from repro_torch.kernels.ops import flash_mha
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import attention, moe, transformer
+    from repro_torch.models.layers import mlp, rmsnorm
+    plain = dataclasses.replace(cfg, attn_impl="xla")
+    positions = torch.arange(tokens.shape[1], device="cuda").expand(
+        tokens.shape)
+    rels = {"self attention": [], "plain path": [], "moe": []}
+    routes = []
+
+    def held(kind, out, want):
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{kind} {len(rels[kind])}: non-finite")
+        rels[kind].append(rel_err(out.float(), want.float()))
+
+    with torch.inference_mode():
+        x = transformer._embed(params, cfg, tokens, None)
+        layers = transformer.layer_views(params["layers"])
+        for lp, (is_moe, fp), (window, chunk) in zip(
+                layers, transformer.layer_ffns(layers, params, cfg),
+                transformer._layer_masks(cfg)):
+            h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+            ref = attention.mha_full(lp, h, plain, positions, window=window,
+                                     chunk=chunk)
+            if chunk is None:
+                q, k, v = attention._project_qkv(lp, h, cfg, positions)
+                out = attention._out_proj(
+                    flash_mha(q, k, v, causal=True, window=window), lp["wo"])
+                held("self attention", out, attention._out_proj(
+                    attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                  causal=True, window=window).transpose(1, 2),
+                    lp["wo"]))
+                rels["plain path"].append(rel_err(out.float(), ref.float()))
+            x = x + ref
+            hn = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+            if not is_moe:
+                x = x + mlp(fp, hn, cfg)
+                continue
+            flat = hn.reshape(-1, cfg.d_model)
+            outs, wants = [], []
+            for part in flat.split(MOE_CHECK_TOKENS):
+                outs.append(moe.moe_tokens(fp, part, cfg))
+                wants.append(moe.moe_layer(fp, part[:, None], cfg)[0][:, 0])
+            out = torch.cat(outs)
+            held("moe", out, torch.cat(wants))
+            x = x + out.reshape(x.shape)
+            k = cfg.top_k
+            card = moe.top_k_routes(fp, flat, cfg)[1].sort(-1).values.cpu()
+            top = moe.router_probs({"router": fp["router"].cpu()},
+                                   flat.cpu()).topk(k + 1, dim=-1)
+            tie = top.values[:, k - 1] - top.values[:, k] < ROUTE_TIE
+            differ = (card != top.indices[:, :k].sort(-1).values).any(-1)
+            layer = {"differ": int(differ.sum()), "near_tie": int(tie.sum())}
+            if bool((differ & ~tie).any()):
+                raise AssertionError(f"MoE layer {len(routes)}: routes on the "
+                                     f"card differ from the CPU's beyond a "
+                                     f"near tie: {layer}")
+            routes.append(layer)
+    return rels, routes
+
+
+def check_moe_prefill(torch, cfg, params, tokens) -> dict:
+    """A MoE config's bf16 prefill (moe_layer_errors, layer by layer: the
+    flash layers' self attention at SSM_LAYER_REL_TOL against
+    attention_ref, each MoE layer's moe_tokens at SSM_LAYER_REL_TOL against
+    moe_layer at S=1, its routes on the card against the CPU's), then the
+    last prefill logits,
+    flash against plain, as drawn (no limit: without qk-norm the random
+    init's scores are in the hundreds, see check_dense_prefill) and on wq
+    and wk rescaled to the fan-in d_model.  Top-k routing is discontinuous,
+    so the two paths' last-ulp differences flip some tokens' routes; each
+    MoE layer's flipped tokens are counted and printed.  A flip at a token
+    reaches another token's logits only through attention, spread over the
+    prompt, while it moves its own token's logits by O(1); and over 4096
+    tokens some flip in every request (a gap between the k-th and the next
+    expert's probability below the ~1e-3 noise is a few tokens in a
+    thousand).  So the rescaled logits are held at PREFILL_REL_TOL over the
+    requests whose last token kept its routes in every MoE layer, and over
+    the requests with no flip at all where there are any."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe, transformer
+    n_flash = sum(chunk is None for _, chunk in transformer._layer_masks(cfg))
+    with RouteCount(fa, {"sm90": n_flash, "simt": 0},
+                    "bf16 self attention on the flash kernel"):
+        rels, routes = moe_layer_errors(torch, cfg, params, tokens)
+    out = check_blocks(cfg, rels, SSM_LAYER_REL_TOL, "bf16")
+    out["moe_routes_card_vs_cpu_by_layer"] = routes
+    print(f"[serving] {cfg.name} MoE routes on the card vs the CPU on the "
+          f"same bf16 inputs, by MoE layer, of {tokens.numel()} tokens: "
+          f"{routes} (a route may differ only at a near tie, top-{cfg.top_k} "
+          f"probability gap below {ROUTE_TIE})", flush=True)
+    worst = max(rels["plain path"])
+    out["bf16_self_attention_vs_plain_path_max_rel_err"] = worst
+    print(f"[serving] {cfg.name} bf16 self attention output, kernel vs the "
+          f"plain path (scores rounded to bf16): max rel err {worst:.3e} "
+          f"(no limit)", flush=True)
+    layers = params["layers"]
+    scaled = {**params, "layers": {
+        **layers, "wq": layers["wq"] * math.sqrt(cfg.n_heads / cfg.d_model),
+        "wk": layers["wk"] * math.sqrt(cfg.n_kv_heads / cfg.d_model)}}
+    b_, s = tokens.shape
+    for fan_in, p in (("as_drawn", params), ("d_model", scaled)):
+        held = p is scaled
+        logits, routes = {}, {}
+        for impl in ("pallas", "xla"):
+            with recorded_routes(moe) as calls, RouteCount(
+                    fa, {"sm90": n_flash if impl == "pallas" else 0,
+                         "simt": 0}, f"bf16 prefill at attn_impl {impl}"):
+                logits[impl] = prefill_logits(torch, cfg, p, tokens,
+                                              attn_impl=impl)[:, -1]
+            routes[impl] = [c.sort(-1).values.reshape(b_, s, -1)
+                            for c in calls]
+        flips = torch.stack([(a != b).any(-1) for a, b in
+                             zip(routes["pallas"], routes["xla"])])
+        flipped = flips.any(0)                      # [B, S]
+        sets = {"all": torch.ones(b_, dtype=torch.bool, device="cuda"),
+                "last_token_kept": ~flipped[:, -1],
+                "no_flip": ~flipped.any(1)}
+        errs = {name: rel_err(logits["pallas"][rows], logits["xla"][rows])
+                for name, rows in sets.items() if bool(rows.any())}
+        key = f"qk_fan_in_{fan_in}"
+        out[f"{key}_flipped_tokens_by_layer"] = flips.sum((1, 2)).tolist()
+        out[f"{key}_requests_by_set"] = {n: int(r.sum())
+                                         for n, r in sets.items()}
+        out.update({f"prefill_{key}_{n}_kernel_vs_plain_rel_err": r
+                    for n, r in errs.items()})
+        limit = f"tol {PREFILL_REL_TOL}" if held else "no limit"
+        print(f"[serving] {cfg.name} prefill last logits, wq and wk "
+              f"{'at fan-in d_model' if held else 'as drawn'}, flash vs "
+              f"plain: tokens whose top-{cfg.top_k} routes differ, by MoE "
+              f"layer, {out[f'{key}_flipped_tokens_by_layer']} of {b_ * s}; "
+              f"requests by set {out[f'{key}_requests_by_set']}; rel err "
+              + ", ".join(f"{n} {r:.3e}" for n, r in errs.items())
+              + f" ({limit} on last_token_kept and no_flip)", flush=True)
+        if held and (not errs.get("last_token_kept", 1.0) < PREFILL_REL_TOL
+                     or not errs.get("no_flip", 0.0) < PREFILL_REL_TOL):
+            raise AssertionError(f"prefill logits disagree: {errs}")
+    del scaled
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(torch, counters, arch, gen) -> dict:
+    """4f: one MoE config at its published width, cut to ONE_CARD_LAYERS,
+    on freed memory: its init's own peak memory, then phase_serving with
+    every layer without a chunk on the flash kernel's sm90 route (all of
+    grok's, llama4's global layer), then the f32 smoke config's tokens on
+    both paths."""
+    from repro_torch.configs import ONE_CARD_LAYERS, get_config
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.module import param_bytes, param_count
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, attn_impl="pallas",
+                              n_layers=ONE_CARD_LAYERS[arch])
+    masks = transformer._layer_masks(cfg)
+    n_flash = sum(chunk is None for _, chunk in masks)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen.manual_seed(SEED)
+    params, _ = registry.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_moe = sum(is_moe for is_moe, _ in transformer.layer_ffns(
+        transformer.layer_views(params["layers"]), params, cfg))
+    init = {"layers": cfg.n_layers, "published_layers": full.n_layers,
+            "params": param_count(params),
+            "weights_gib": param_bytes(params) / 2**30,
+            "init_max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30}
+    print(f"[serving] {arch}: {cfg.n_layers} of its {full.n_layers} layers "
+          f"(depth cut to fit one card; d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} KV heads of "
+          f"{cfg.resolved_head_dim}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} at d_ff {cfg.d_ff}, vocab {cfg.vocab}, as published)"
+          f": {n_moe} MoE layers, {n_flash} on the flash kernel, "
+          f"{len(masks) - n_flash} chunked on the plain path; "
+          f"{init['params']} params, {init['weights_gib']:.3f} GiB of bf16 "
+          f"weights, init peak {init['init_max_memory_allocated_gib']:.3f} "
+          f"GiB", flush=True)
+    serving = phase_serving(
+        torch, counters, cfg, params, check_moe_prefill,
+        {"flash_attention": n_flash, "ssd_scan": 0},
+        {"flash_attention": {"sm90": n_flash, "simt": 0},
+         "ssd_scan": {"sm90": 0, "simt": 0}})
+    serving.update(init)
+    del params
+    torch.cuda.empty_cache()
+    phase_smoke_tokens(torch, arch, ("attn_impl",))
+    return serving
+
+
 def phase_serving(torch, counters, cfg, params, check_prefill,
                   want_launches, want_routes, prompt_len=PROMPT_LEN,
                   context=CONTEXT, want_windowed=0) -> dict:
@@ -1460,7 +1718,7 @@ def main() -> int:
               "runs only on a machine with an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ONE_CARD_LAYERS, get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
@@ -1569,6 +1827,12 @@ def main() -> int:
     for arch in DENSE_ARCHS:
         with clock(f"4e {arch} serving"):
             set_launches(flash, phase_dense(torch, counters, arch, gen))
+
+    # 4f. the MoE configs at full width, cut in depth to fit the card, the
+    # flash kernel on every layer without a chunk, each on its own memory
+    for arch in ONE_CARD_LAYERS:
+        with clock(f"4f {arch} serving"):
+            set_launches(flash, phase_moe(torch, counters, arch, gen))
 
     # 6. training on the plain path: full-width qwen3, card vs CPU parity,
     # and the kernels' refusal of autograd

@@ -12,6 +12,8 @@ ARCH_MODULES = {
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "whisper-medium": "repro_torch.configs.whisper_medium",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
 }
 
 
@@ -29,5 +31,12 @@ def get_smoke_config(arch: str) -> ModelConfig:
 
 ALL_ARCHS = list(ARCH_MODULES)
 
-__all__ = ["ALL_ARCHS", "ModelConfig", "get_config", "get_smoke_config",
-           "reduce_for_smoke"]
+#: layers of the configs whose bf16 weights outgrow one 80 GB card at full
+#: depth (grok-1-314b 588 GiB, llama4-maverick 739 GiB), cut so that they
+#: fit, widths and expert counts as published; llama4's cut keeps its
+#: dense/MoE interleave and its one global layer in four.  chip_smoke.py's
+#: phase 4f and launch/profile_serve.py serve them at these depths.
+ONE_CARD_LAYERS = {"grok-1-314b": 6, "llama4-maverick-400b-a17b": 4}
+
+__all__ = ["ALL_ARCHS", "ModelConfig", "ONE_CARD_LAYERS", "get_config",
+           "get_smoke_config", "reduce_for_smoke"]

@@ -2,11 +2,12 @@
 
 Same fields and defaults as :class:`repro.configs.base.ModelConfig`, so a
 config built for one package describes the same model in the other.  The
-port runs the dense decoder (qwen3, gemma, gemma3's 5:1 local:global
-sliding window), the VLM decoder (pixtral, stub patch embeddings), the
-Mamba2 (ssm) stack, the zamba2 hybrid and the whisper encoder-decoder; the
-MoE fields are kept, unused, so that configs stay field-for-field
-comparable.
+port runs every family of the reference: the dense decoder (qwen3, gemma,
+gemma3's 5:1 local:global sliding window), the VLM decoder (pixtral, stub
+patch embeddings), the MoE decoder (grok-1 with a MoE FFN in every layer,
+llama4-maverick with dense and MoE layers interleaved and chunked local
+attention), the Mamba2 (ssm) stack, the zamba2 hybrid and the whisper
+encoder-decoder.
 """
 
 from __future__ import annotations

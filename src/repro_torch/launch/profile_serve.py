@@ -3,13 +3,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch qwen3-0.6b | qwen3-1.7b | gemma-2b | gemma3-27b |
-                pixtral-12b | mamba2-2.7b | zamba2-7b | whisper-medium]
+                pixtral-12b | mamba2-2.7b | zamba2-7b | whisper-medium |
+                grok-1-314b | llama4-maverick-400b-a17b]
 
 Builds chip_smoke.py's serving configuration for the arch (full width,
 random bf16 weights from seed 0, ``attn_impl`` and ``ssm_impl`` "pallas",
 8 prompts of 512 tokens and context 1024; whisper-medium 8 prompts of 224
 tokens and context 448; gemma3-27b 8 prompts of 1536 tokens and context
-2048, so that its local layers cut their 1024-token window), then
+2048, so that its local layers cut their 1024-token window; the MoE
+configs at phase 4f's depth, ``configs.ONE_CARD_LAYERS``, widths and
+expert counts as published), then
 profiles its windows, each after a warm-up:
 for whisper-medium first the encoder (``registry.prefill_encoder`` over
 zero frames, as the engine runs it); one ``registry.prefill_caches`` over
@@ -33,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.configs import ALL_ARCHS, ONE_CARD_LAYERS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 
@@ -84,8 +87,10 @@ def main() -> None:
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ALL_ARCHS)
     args = ap.parse_args()
     device = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config(args.arch), attn_impl="pallas",
-                              ssm_impl="pallas")
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", ssm_impl="pallas",
+                              n_layers=ONE_CARD_LAYERS.get(cfg.name,
+                                                          cfg.n_layers))
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     params, _ = registry.init_params(gen, cfg)
@@ -120,7 +125,8 @@ def main() -> None:
         for fn in windows.values():   # warm-up of every window
             fn()
         out = {"card": torch.cuda.get_device_name(device),
-               "config": {"arch": cfg.name, "requests": REQUESTS,
+               "config": {"arch": cfg.name, "layers": cfg.n_layers,
+                          "requests": REQUESTS,
                           "prompt_len": prompt_len,
                           "max_context": max_context,
                           "decode_steps": DECODE_STEPS},

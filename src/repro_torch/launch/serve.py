@@ -13,7 +13,14 @@ pixtral-12b, served on text tokens as the reference's engine serves it)
 and for the decoder of the whisper encoder-decoder (``--arch
 whisper-medium``, whose encoder runs first, plain, on zero frames as the
 reference's engine gives it), the SSD chunk scan for mamba2 (``--arch
-mamba2-2.7b``), both for the zamba2 hybrid (``--arch zamba2-7b``).  With
+mamba2-2.7b``), both for the zamba2 hybrid (``--arch zamba2-7b``).  The
+MoE configs (``--arch grok-1-314b``, whose every layer goes to the flash
+kernel, and ``llama4-maverick-400b-a17b``, whose global layers do while
+its chunked local layers stay plain) route each prompt and decode token
+to its experts as a group of one; at full depth they hold 588 and 739 GiB
+of bf16 weights, more than one 80 GB card holds (``--smoke`` serves their
+smoke configs anywhere; chip_smoke.py and profile_serve.py serve them on
+one card cut to the depths of ``configs.ONE_CARD_LAYERS``).  With
 ``--partition-gb`` the engine runs the time-series predictor against that
 slice size and performs the early restart (regrow to the profile the
 predictor asks for) when the converged peak estimate exceeds it.

@@ -62,7 +62,9 @@ class ParamBuilder:
         DRAW_LIMIT elements is drawn one slice of its leading axis at a
         time into its final dtype, so the f32 draw never holds it whole
         (gemma3-27b's stacked MLP weights are 7.2e9 elements: 28.7 GB in
-        f32, twice over with the scaled copy)."""
+        f32, twice over with the scaled copy); a slice still over the
+        limit is itself drawn slice by slice (llama4-maverick's expert
+        stack [layers, 128, 5120, 8192] has 5.4e9-element slices)."""
         gen = None if self.device.type == "meta" else self.generator
 
         def draw(part_shape):
@@ -72,8 +74,12 @@ class ParamBuilder:
 
         if math.prod(shape) <= DRAW_LIMIT or len(shape) < 2:
             return draw(shape)
+        # the fewest leading axes whose slices fit (slices stay at least 1-D)
+        lead = 1
+        while lead < len(shape) - 1 and math.prod(shape[lead:]) > DRAW_LIMIT:
+            lead += 1
         value = torch.empty(shape, dtype=dtype, device=self.device)
-        for part in value:
+        for part in value.view(-1, *shape[lead:]):
             part.copy_(draw(part.shape))
         return value
 

@@ -1,14 +1,13 @@
-"""Unified model API over the families the port runs, routed by family as
-in the reference: the encoder-decoder (whisper) to :mod:`models.encdec`,
-the hybrid (zamba2) to :mod:`models.hybrid`, the dense, VLM and ssm stacks
-to :mod:`models.transformer`.
+"""Unified model API over every family of the reference, routed by family
+as in the reference: the encoder-decoder (whisper) to :mod:`models.encdec`,
+the hybrid (zamba2) to :mod:`models.hybrid`, the dense, VLM, MoE and ssm
+stacks to :mod:`models.transformer`.
 
 A "batch" is a dict:
     tokens   [B, S] int             (all families)
     labels   [B, S] int             (training; -1 = masked)
     frames   [B, enc_seq, d]        (audio stub frontend)
     patches  [B, vision_tokens, d]  (VLM stub frontend)
-The moe family raises NotImplementedError until its slice is ported.
 """
 
 from __future__ import annotations
@@ -48,7 +47,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> DecoderOutput:
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             aux_weight: float = 0.01) -> tuple[torch.Tensor, DecoderOutput]:
     """The training loss: mean next-token CE over the batch's ``labels``
-    plus ``aux_weight`` times the model's auxiliary loss."""
+    plus ``aux_weight`` times the model's auxiliary loss (the MoE layers'
+    summed load-balancing loss; zero for the other families)."""
     out = forward(params, cfg, batch)
     ce = cross_entropy_loss(out.logits, batch["labels"], cfg.vocab)
     return ce + aux_weight * out.aux_loss, out
@@ -83,7 +83,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Forward over the prompt returning ONLY the last position's logits."""
+    """Forward over the prompt returning ONLY the last position's logits.
+    Its MoE layers dispatch by capacity over groups of tokens, as the
+    reference's ``forward`` does; the engine's :func:`prefill_caches`
+    routes each token alone, as the reference engine's replay does."""
     if cfg.family == "audio":
         return encdec.forward(params, cfg, batch["tokens"], batch["frames"],
                               last_only=True).logits

@@ -1,9 +1,12 @@
-"""Decoder-only stacks: the dense/VLM transformer and the Mamba2 (ssm)
-stack.
+"""Decoder-only stacks: the dense/VLM/MoE transformer and the Mamba2
+(ssm) stack.
 
 Parameters carry a leading ``layers`` axis as in the reference; the port
 loops over it in Python, so each layer's window is a plain int (``None``
 for global layers) and full-sequence attention can reach the flash kernel.
+MoE configs put their experts in ``layers`` (grok-1, a MoE FFN in every
+layer) or interleave separate ``moe_layers`` and ``dense_layers`` stacks
+(llama4, ``moe_every`` > 1); :func:`layer_ffns` gives each layer its FFN.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_tokens, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm,
@@ -53,13 +57,11 @@ def _layer_masks(cfg: ModelConfig) -> list[tuple[int | None, int | None]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "ssm") or cfg.n_experts:
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and VLM decoders "
-            f"(qwen3, gemma, gemma3, pixtral), the ssm stack (mamba2), the "
-            f"hybrid (models/hybrid.py, zamba2) and the encoder-decoder "
-            f"(models/encdec.py, whisper) only; no MoE (family="
-            f"{cfg.family}, n_experts={cfg.n_experts})")
+            f"{cfg.name}: this module runs the dense, VLM, MoE and ssm "
+            f"stacks; family {cfg.family} runs in models/hybrid.py "
+            f"(zamba2) or models/encdec.py (whisper)")
 
 
 def layer_views(stack: dict) -> list[dict]:
@@ -70,6 +72,29 @@ def layer_views(stack: dict) -> list[dict]:
     per_key = {k: v.unbind(0) for k, v in stack.items()}
     n = len(next(iter(per_key.values())))
     return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+
+
+def layer_ffns(layers: list[dict], params: dict, cfg: ModelConfig
+               ) -> list[tuple[bool, dict]]:
+    """Each layer's FFN as (is_moe, its params), given ``layers``, the
+    views of ``params["layers"]``.  With ``moe_every`` m > 1 (llama4) layer
+    i is MoE iff (i+1) % m == 0: the MoE layers take ``moe_layers`` in
+    order, the dense layers ``dense_layers``."""
+    if not cfg.n_experts:
+        return [(False, lp) for lp in layers]
+    if cfg.moe_every == 1:
+        return [(True, lp) for lp in layers]
+    moe = iter(layer_views(params["moe_layers"]))
+    dense = iter(layer_views(params["dense_layers"]))
+    return [(True, next(moe)) if (i + 1) % cfg.moe_every == 0
+            else (False, next(dense)) for i in range(len(layers))]
+
+
+def _ffn_tokens(is_moe: bool, fp: dict, x: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """The FFN of decode and the cache-filling prefill: a MoE layer routes
+    every token as a group of one, as the reference's decode_step does."""
+    return moe_lib.moe_tokens(fp, x, cfg) if is_moe else mlp(fp, x, cfg)
 
 
 def remat_layer(fn):
@@ -108,7 +133,16 @@ def init_decoder(generator: torch.Generator | None, cfg: ModelConfig,
         attn.init_attention(lyr, cfg, stacked=L)
         init_rmsnorm_stacked(lyr, "norm1", cfg.d_model, L)
         init_rmsnorm_stacked(lyr, "norm2", cfg.d_model, L)
-        init_mlp(lyr, cfg, stacked=L)
+        if cfg.n_experts and cfg.moe_every == 1:
+            moe_lib.init_moe(lyr, cfg, stacked=L)
+        elif cfg.n_experts:
+            # dense and MoE layers interleaved (llama4): separate stacks
+            n_moe = L // cfg.moe_every
+            moe_lib.init_moe(b.sub("moe_layers"), cfg, stacked=n_moe)
+            init_mlp(b.sub("dense_layers"), cfg,
+                     d_ff=cfg.d_ff * cfg.moe_every, stacked=L - n_moe)
+        else:
+            init_mlp(lyr, cfg, stacked=L)
     init_rmsnorm(b, "final_norm", cfg.d_model)
     return b.build()
 
@@ -142,6 +176,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     b_, s = tokens.shape
     x = _embed(params, cfg, tokens, extra_embeddings)
     layers = layer_views(params["layers"])
+    aux = torch.zeros((), device=x.device)
     if cfg.family == "ssm":
         @remat_layer
         def ssm_body(h, lp):
@@ -154,17 +189,22 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(s, device=x.device).expand(b_, s)
 
         @remat_layer
-        def body(h, lp, window, chunk):
+        def body(h, lp, is_moe, fp, window, chunk):
             h = h + attn.mha_full(lp, rmsnorm(h, lp["norm1"], cfg.norm_eps),
                                   cfg, positions, window=window, chunk=chunk)
-            return h + mlp(lp, rmsnorm(h, lp["norm2"], cfg.norm_eps), cfg)
+            hn = rmsnorm(h, lp["norm2"], cfg.norm_eps)
+            if is_moe:
+                out, a = moe_lib.moe_layer(fp, hn, cfg)
+                return h + out, a
+            return h + mlp(fp, hn, cfg), torch.zeros((), device=h.device)
 
-        for lp, (window, chunk) in zip(layers, _layer_masks(cfg)):
-            x = body(x, lp, window, chunk)
+        for lp, (is_moe, fp), (window, chunk) in zip(
+                layers, layer_ffns(layers, params, cfg), _layer_masks(cfg)):
+            x, a = body(x, lp, is_moe, fp, window, chunk)
+            aux = aux + a
     if last_only:
         x = x[:, -1:]
-    return DecoderOutput(logits=_head(params, cfg, x),
-                         aux_loss=torch.zeros((), device=x.device))
+    return DecoderOutput(logits=_head(params, cfg, x), aux_loss=aux)
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -186,7 +226,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     logits are the replay's, up to the order of the sums, while the
     attention runs as one causal full-sequence call per layer (through
     the flash kernel when ``attn_impl == 'pallas'``) instead of S decode
-    steps.
+    steps.  A MoE layer routes each prompt token as a group of its own
+    (:func:`repro_torch.models.moe.moe_tokens`), as the replay does, so no
+    token is dropped, where ``forward``'s capacity dispatch over groups of
+    up to 512 tokens may drop some.
     """
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, extra_embeddings)
@@ -197,12 +240,14 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg,
                 caches["ssm"]["conv"][i], caches["ssm"]["state"][i])
         return _head(params, cfg, x[:, -1:]), caches
-    for i, (window, chunk) in enumerate(_layer_masks(cfg)):
+    for i, ((window, chunk), (is_moe, fp)) in enumerate(
+            zip(_layer_masks(cfg), layer_ffns(layers, params, cfg))):
         lp = layers[i]
         x = x + attn.mha_prefill(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
                                  cfg, caches["k"][i], caches["v"][i],
                                  window=window, chunk=chunk)
-        x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+        x = x + _ffn_tokens(is_moe, fp, rmsnorm(x, lp["norm2"], cfg.norm_eps),
+                            cfg)
     return _head(params, cfg, x[:, -1:]), caches
 
 
@@ -214,7 +259,9 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
     if cfg.family == "ssm":
         return {"ssm": ssm_lib.init_ssm_cache(cfg, cfg.n_layers, batch,
                                               device=device)}
-    if cfg.kv_quant or cfg.windowed_cache:
+    # MoE configs take the plain cache whatever these flags say, as the
+    # reference's init_caches gives them
+    if (cfg.kv_quant or cfg.windowed_cache) and not cfg.n_experts:
         raise NotImplementedError(
             "the port has the default bf16 [L,B,C,KH,hd] cache only")
     k, v = attn.init_kv_cache(cfg, cfg.n_layers, batch, context,
@@ -239,11 +286,13 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             state[i].copy_(state_i)
             x = x + out
         return _head(params, cfg, x), caches
-    for i, (window, chunk) in enumerate(_layer_masks(cfg)):
+    for i, ((window, chunk), (is_moe, fp)) in enumerate(
+            zip(_layer_masks(cfg), layer_ffns(layers, params, cfg))):
         lp = layers[i]
         out, _, _ = attn.mha_decode(
             lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg, caches["k"][i],
             caches["v"][i], index, window=window, chunk=chunk)
         x = x + out
-        x = x + mlp(lp, rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg)
+        x = x + _ffn_tokens(is_moe, fp, rmsnorm(x, lp["norm2"], cfg.norm_eps),
+                            cfg)
     return _head(params, cfg, x), caches

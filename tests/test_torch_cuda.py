@@ -76,7 +76,10 @@ def test_kernel_matches_plain(card, dtype, b, s, h, kh, d, causal, window):
 # ragged (the pad hidden by kv_len), S of 64, 200 (padded), 512 and 1024;
 # zamba2's prefill shape (MHA at D=112: one head over two q tiles a block);
 # D=256 (one block an SM): gemma-2b's prefill shape (MQA, KH=1), ragged S,
-# a window, an odd group (one head over two q tiles), S=1024, non-causal
+# a window, an odd group (one head over two q tiles), S=1024, non-causal;
+# the MoE configs' GQA groups: grok-1's 48 heads over 8 KV heads (group 6,
+# two heads a block) and llama4-maverick's 40 over 8 (group 5, one head
+# over two q tiles, K/V head h // 5), at their prefill shape and ragged
 SM90_CASES = [
     (2, 512, 16, 8, 128, True, None), (1, 64, 2, 2, 64, True, None),
     (1, 200, 8, 1, 128, True, None), (2, 512, 4, 4, 64, True, 64),
@@ -87,7 +90,9 @@ SM90_CASES = [
     (2, 200, 4, 2, 112, False, None), (1, 512, 4, 4, 112, True, 128),
     (8, 512, 8, 1, 256, True, None), (2, 200, 8, 1, 256, True, None),
     (2, 512, 8, 1, 256, True, 128), (1, 512, 3, 1, 256, True, None),
-    (1, 1024, 8, 1, 256, True, None), (1, 200, 4, 2, 256, False, None)]
+    (1, 1024, 8, 1, 256, True, None), (1, 200, 4, 2, 256, False, None),
+    (8, 512, 48, 8, 128, True, None), (2, 200, 48, 8, 128, True, None),
+    (8, 512, 40, 8, 128, True, None), (2, 200, 40, 8, 128, True, None)]
 
 
 @pytest.mark.cuda
@@ -502,3 +507,31 @@ def test_whisper_bf16_serving_launches_flash_on_sm90(card):
     err = ((logits["pallas"].float() - logits["xla"].float()).abs().max()
            / logits["xla"].float().abs().max())
     assert float(err) < 5e-2, float(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_moe_tokens_on_card_matches_cpu(card, arch):
+    """One bf16 MoE layer of the smoke config (grok's top-2, llama4's
+    top-1 over 4 experts) on 3 x 100 tokens: moe_tokens on the card routes
+    every token as on the CPU, and its output is within 2e-2 of the CPU's
+    (relative to the largest entry: bf16 products summed in other
+    orders)."""
+    from repro_torch.models import moe
+    from repro_torch.models.module import tree_map
+    cfg = get_smoke_config(arch)
+    params = cast_tree(registry.init_params(
+        torch.Generator().manual_seed(0), cfg)[0], torch.bfloat16)
+    stack = "layers" if cfg.moe_every == 1 else "moe_layers"
+    lp = {k: v[0] for k, v in params[stack].items()}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 100, cfg.d_model), dtype=np.float32)).bfloat16()
+    out, routes = {}, {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), lp)
+            out[dev] = moe.moe_tokens(p, x.to(dev), cfg).float().cpu()
+            routes[dev] = moe.top_k_routes(p, x.to(dev), cfg)[1].cpu()
+    torch.testing.assert_close(routes["cuda"], routes["cpu"], rtol=0, atol=0)
+    err = (out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()
+    assert float(err) < 2e-2, float(err)
