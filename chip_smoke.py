@@ -26,6 +26,17 @@ Phases, each raising on failure (the script then exits non-zero):
    the kernels' launches in that run (28 on "sm90", none on "simt");
 5. early restart: the regrow loop of repro_torch.launch.serve on a slice
    smaller than the weights;
+5b. multi-tenant: repro_torch.launch.multi_tenant's flow on phase 4's
+   weights: three tenants lease 1g.10gb slices of the H100 MIG FSM through
+   the partition manager (GPC 3, 1 and 5, reachability 148 -> 76 -> 37 ->
+   17), each run capped at its lease by the allocator's memory fraction
+   (MIG instances are not created); tenant-a and tenant-b decode 24 tokens
+   at batch 1 in a context of 256, tenant-c-growing 128 tokens at batch 8
+   in a context of 4096, until its predictor flags the lease and it
+   restarts early on 1g.20gb; per tenant the profile and GPC, decode
+   ms/step and the allocator's peak beside the lease, for the growing one
+   the restart step and predicted peak; no kernel launches, the card's
+   FSM empty at the end;
 4b. serving: mamba2-2.7b at full width through ServeEngine.run with the
    prefill's SSD on the chunk-scan kernel, counting the launches (64 on
    "sm90", none on "simt"), after qwen3's weights are freed; then the f32
@@ -1475,6 +1486,78 @@ def set_launches(entries, serving) -> None:
         entry["launches"] = sum(entry["launches_by_arch"].values())
 
 
+#: phase 5b: the reference's leases of three tenants of full-width
+#: qwen3-0.6b on the H100 (profile, start GPC, card reachability after)
+MT_LEASES = [("1g.10gb", 3, 76), ("1g.10gb", 1, 37), ("1g.10gb", 5, 17)]
+MT_REGROWN = "1g.20gb"
+
+
+def phase_multi_tenant(torch, counters, cfg, params) -> dict:
+    """repro_torch.launch.multi_tenant's flow on the card, on phase 4's
+    weights, with every kernel's launch count set to 0 just before it and
+    read just after: it must lease MT_LEASES, finish every tenant's
+    tokens, keep each run's allocator peak within its lease, restart the
+    growing tenant early on MT_REGROWN, launch no kernel and leave the
+    card's FSM empty."""
+    from repro_torch.launch import multi_tenant as mt
+
+    jobs = mt.make_jobs(smoke=False)
+    torch.cuda.synchronize()
+    print(f"[multi_tenant] resident before the tenants: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    pm, tenants = mt.run_tenants(cfg, params, jobs, "cuda")
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches in the multi-tenant flow: "
+                             f"{launches}")
+    leases = [(t.slices[0].profile, t.slices[0].gpc, t.reach)
+              for t in tenants]
+    if leases != MT_LEASES:
+        raise AssertionError(f"leases {leases}, want {MT_LEASES}")
+    if pm.state != pm.backend.initial_state() or pm.live:
+        raise AssertionError(f"card not empty at the end: {pm.describe()}")
+    stats = []
+    for t in tenants:
+        if len(t.tokens) != t.job.n_tokens or not all(
+                0 <= tok < cfg.vocab for tok in t.tokens):
+            raise AssertionError(f"{t.job.name}: {len(t.tokens)} tokens of "
+                                 f"{t.job.n_tokens}")
+        want = [MT_LEASES[0][0]] + [MT_REGROWN] * t.job.growing
+        if [s.profile for s in t.slices] != want:
+            raise AssertionError(f"{t.job.name} ran on "
+                                 f"{[s.profile for s in t.slices]}, want "
+                                 f"{want}")
+        flagged = t.slices[0].flagged
+        if t.job.growing and not (flagged and flagged.iteration
+                                  < t.job.n_tokens - 1):
+            raise AssertionError(f"{t.job.name}: no early restart before "
+                                 f"its last step")
+        for s in t.slices:
+            if s.peak_gb > s.lease_gb:
+                raise AssertionError(f"{t.job.name} on {s.profile}: "
+                                     f"allocator peak {s.peak_gb:.3f} GiB "
+                                     f"over its {s.lease_gb} GiB lease")
+        row = {"tenant": t.job.name, "batch": t.job.batch,
+               "context": t.job.context, "tokens": t.job.n_tokens,
+               "reach_after_lease": t.reach,
+               "runs": [{"profile": s.profile, "gpc": s.gpc,
+                         "lease_gib": s.lease_gb, "steps": s.steps,
+                         "ms_per_step": s.ms_per_step,
+                         "max_memory_allocated_gib": s.peak_gb}
+                        for s in t.slices]}
+        if flagged:
+            row["restart_step"] = flagged.iteration
+            row["predicted_peak_gib"] = flagged.peak_mem_bytes / 2**30
+        print(f"[multi_tenant] {json.dumps(row)}", flush=True)
+        stats.append(row)
+    print(f"[multi_tenant] kernel launches in the flow: {launches}",
+          flush=True)
+    return {"tenants": stats, "launches": launches}
+
+
 def phase_restart(cfg, params) -> list[str]:
     from repro_torch.core.mig_h100 import MigH100Backend
     from repro_torch.launch.serve import make_requests, serve
@@ -1770,6 +1853,10 @@ def main() -> int:
     # 5. early restart and regrow (serve prints each restart line)
     with clock("5 restart"):
         phase_restart(cfg, params)
+
+    # 5b. the multi-tenant MIG flow on phase 4's weights, no kernel
+    with clock("5b multi-tenant"):
+        phase_multi_tenant(torch, counters, cfg, params)
 
     # 4b. full-width mamba2 serving on the SSD prefill, on its own memory
     with clock("4b mamba2 serving"):

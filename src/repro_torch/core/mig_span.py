@@ -5,7 +5,8 @@ line the paper's abstract targets) exposes the same structure: ``n_gpc``
 compute slices, ``n_mem_slices`` memory slices, and a table of profiles that
 occupy a contiguous GPC span and may only *start* at hardware-defined
 positions, so each device is one table (the port carries the H100's,
-:mod:`repro_torch.core.mig_h100`).  This is the port's copy of
+:mod:`repro_torch.core.mig_h100`, and the A100's,
+:mod:`repro_torch.core.mig_a100`).  This is the port's copy of
 ``repro.core.mig_span``.
 
 A state is the frozenset of (start_gpc, profile_name) instances;

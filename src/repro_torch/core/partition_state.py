@@ -9,8 +9,9 @@ The paper formalizes MIG management as an FSM  M = (S, Sigma, delta, s0, F):
 * ``F``      — fully configured states.
 
 The port's copy of ``repro.core.partition_state``, unchanged in behaviour.
-Its backend here is the H100 MIG FSM (:mod:`repro_torch.core.mig_h100`),
-which the serving engine's early restart asks for a target profile.
+Its backends are the MIG span FSMs of the two cards the paper uses, the
+H100 (:mod:`repro_torch.core.mig_h100`), on which the port runs, and the
+A100 (:mod:`repro_torch.core.mig_a100`).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ class PartitionBackend:
     profiles: Sequence[PartitionProfile]
 
     #: True when the state space is small enough to intern as a compiled
-    #: transition graph (the reference planner's repro.core.planner.graph).
+    #: transition graph (:mod:`repro_torch.core.planner.graph`).
     supports_compiled_graph: bool = False
 
     def initial_state(self) -> Hashable:
@@ -100,6 +101,12 @@ class PartitionBackend:
             if p.mem_gb > profile.mem_gb:
                 return p
         return None
+
+
+def saturated(backend: PartitionBackend, state: Hashable) -> bool:
+    """True iff no further allocation is possible — ``state`` is in F."""
+    return all(not backend.enumerate_placements(state, p)
+               for p in backend.profiles)
 
 
 def enumerate_states(backend: PartitionBackend,

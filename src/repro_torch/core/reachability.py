@@ -16,7 +16,7 @@ from __future__ import annotations
 from typing import Hashable
 
 from repro_torch.core.partition_state import (PartitionBackend,
-                                              enumerate_states)
+                                              enumerate_states, saturated)
 
 #: Most device tables a process ever touches.  Beyond this, the oldest
 #: entries are evicted so per-test backends cannot grow the cache unbounded.
@@ -26,6 +26,31 @@ MAX_CACHED_BACKENDS = 8
 #: entries valid (a collected backend's id could be reused); value-keyed
 #: backends (``reachability_cache_key``) share one entry per device table.
 _CACHE: dict[Hashable, tuple[PartitionBackend, dict[Hashable, int]]] = {}
+
+#: every per-backend table cache in the process (this one, the compiled
+#: transition graphs of :mod:`repro_torch.core.planner.graph` and the cost
+#: model's normalizers) registers here so one clear empties them together.
+_REGISTERED_CACHES: list[dict] = [_CACHE]
+
+
+def register_backend_cache(cache: dict) -> dict:
+    """Register another per-backend cache for shared clearing/bounding."""
+    _REGISTERED_CACHES.append(cache)
+    return cache
+
+
+def bounded_cache_insert(cache: dict, key: Hashable, value) -> None:
+    """Insert, then evict oldest entries past :data:`MAX_CACHED_BACKENDS`."""
+    cache[key] = value
+    while len(cache) > MAX_CACHED_BACKENDS:
+        cache.pop(next(iter(cache)))
+
+
+def clear_reachability_cache() -> None:
+    """Drop every cached per-backend table (reachability and transition
+    graphs), so per-test backend tables cannot leak across a test run."""
+    for cache in _REGISTERED_CACHES:
+        cache.clear()
 
 
 def reachability_cache_key(backend: PartitionBackend) -> Hashable:
@@ -64,7 +89,10 @@ def precompute_reachability(backend: PartitionBackend,
         return out
 
     fcr = {s: len(final_set(s)) for s in states}
-    _CACHE[key] = (backend, fcr)
-    while len(_CACHE) > MAX_CACHED_BACKENDS:
-        _CACHE.pop(next(iter(_CACHE)))
+    bounded_cache_insert(_CACHE, key, (backend, fcr))
     return fcr
+
+
+def fully_configured_states(backend: PartitionBackend) -> list[Hashable]:
+    """F — all saturated states (the paper's Fig. 3 rows for the A100)."""
+    return [s for s in enumerate_states(backend) if saturated(backend, s)]

@@ -5,9 +5,8 @@
   exceeds the current partition; preempt now and requeue on the tightest
   profile that holds the predicted peak.
 
-The two targets are the one-line rungs of the reference planner's ladders
-(``repro/core/planner/ladders.py``: ``restart_rung``, ``predicted_rung``),
-written inline so the planner is not pulled in.
+The two targets are the planner's restart rungs
+(:mod:`repro_torch.core.planner.ladders`), as in the reference.
 """
 
 from __future__ import annotations
@@ -18,14 +17,14 @@ import torch
 
 from repro_torch.core.partition_state import (PartitionBackend,
                                               PartitionProfile)
+from repro_torch.core.planner.ladders import predicted_rung, restart_rung
 from repro_torch.models.module import tree_map
 
 
 def oom_restart_target(backend: PartitionBackend,
                        current: PartitionProfile) -> PartitionProfile:
     """Next-larger slice after a crash; the largest profile stays itself."""
-    nxt = backend.next_larger_profile(current)
-    return nxt if nxt is not None else backend.profiles[-1]
+    return restart_rung(backend, current)
 
 
 def early_restart_target(backend: PartitionBackend,
@@ -33,7 +32,7 @@ def early_restart_target(backend: PartitionBackend,
                          headroom: float = 1.0) -> PartitionProfile | None:
     """Tightest slice that holds the predicted peak (+ optional headroom);
     None when nothing on this device fits."""
-    return backend.tightest_profile(predicted_peak_gb * headroom)
+    return predicted_rung(backend, predicted_peak_gb, headroom)
 
 
 def migrate_state(state: Any, device: str | torch.device) -> Any:

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+the multi-tenant flow's memory-cap leases.
 
 These tests need an NVIDIA GPU and skip without one; the module imports
 neither JAX nor the reference package, so it runs on a machine that has
@@ -19,7 +20,7 @@ from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ops import flash_mha, ssd_mixer
 from repro_torch.kernels.ref import attention_ref, ssd_ref
 from repro_torch.models import registry, transformer
-from repro_torch.models.module import cast_tree
+from repro_torch.models.module import cast_tree, tree_map
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # test_kernels.py:99,123
@@ -535,3 +536,43 @@ def test_moe_tokens_on_card_matches_cpu(card, arch):
     torch.testing.assert_close(routes["cuda"], routes["cpu"], rtol=0, atol=0)
     err = (out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()
     assert float(err) < 2e-2, float(err)
+
+
+@pytest.mark.cuda
+def test_memory_lease_caps_the_allocator_and_lifts_the_cap(card):
+    from repro_torch.launch.multi_tenant import memory_lease
+    gib = 1024 ** 3
+    with memory_lease(card, 1.0):
+        kept = torch.empty(gib // 2, dtype=torch.uint8, device=card)
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            torch.empty(gib, dtype=torch.uint8, device=card)
+        assert torch.cuda.max_memory_allocated(card) <= gib
+    with pytest.raises(KeyError):
+        with memory_lease(card, 1.0):
+            raise KeyError("the cap is lifted on the way out")
+    del kept
+    assert torch.empty(2 * gib, dtype=torch.uint8, device=card).numel()
+
+
+@pytest.mark.cuda
+def test_multi_tenant_flow_on_card_matches_cpu(card):
+    """The smoke flow's leases and tokens on the card and on the CPU, on the
+    same f32 weights (the tied embedding scaled down, so that the layers
+    pick the tokens rather than token 0 repeating itself)."""
+    from repro_torch.launch import multi_tenant as mt
+    cfg = get_smoke_config("qwen3-0.6b")
+    gen = torch.Generator().manual_seed(0)
+    params = cast_tree(registry.init_params(gen, cfg)[0], torch.float32)
+    params["embedding"] = params["embedding"] * 0.05
+    runs = {}
+    for dev in ("cpu", card):
+        p = tree_map(lambda x: x.to(dev), params)
+        before = (fa.launches, ssd.launches)
+        pm, tenants = mt.run_tenants(cfg, p, mt.make_jobs(smoke=True), dev,
+                                     log=lambda line: None)
+        assert (fa.launches, ssd.launches) == before
+        assert pm.state == frozenset() and not pm.live
+        runs[str(dev)] = [(t.reach, [(s.profile, s.gpc) for s in t.slices],
+                           t.tokens) for t in tenants]
+    assert runs["cpu"] == runs["cuda"]
+    assert [r[0] for r in runs["cuda"]] == [76, 37, 17]
