@@ -93,7 +93,25 @@ Phases, each raising on failure (the script then exits non-zero):
    saved and loaded through training/checkpoint.py must come back bit for
    bit; (b) the three smoke configs in f32, 3 steps on the card against
    the same steps on the CPU, loss and grad norm within 1e-4; (c) both
-   kernels, on both routes, raise when an input requires grad.
+   kernels, on both routes, raise when an input requires grad;
+7. scheduler: the paper's batch scheduler through the port's entry points
+   on the card machine's host (the scheduler models the device and
+   launches nothing on it; the kernels' counts must stay 0): (a) Fig. 4,
+   all 14 workloads (Hm1-Hm4, Ht1-Ht3, Ml1-Ml3, qwen2, llama3,
+   flan_t5_train, flan_t5) at the paper's job counts, every arm
+   (baseline, Scheme A, Scheme B, A with work stealing on the Ml mixes,
+   A with and without the predictor on the LLM workloads), on the A100's
+   MIG geometry with A100_POWER and the H100's with H100_POWER, each
+   makespan and energy against a pinned table at rel 1e-9 and each OOM,
+   early-restart and reconfiguration count exactly; (b) a traced Hm3
+   Scheme B run streamed to JSONL by the flight recorder, its Metrics
+   equal to the untraced run's, its Chrome trace written, replayed and
+   graded by the regret oracle against pinned values; (c) the regret
+   gate on Hm3, Hm4 and Ht1: no arm beats the oracle, Scheme B's regret
+   is no more than the baseline's; then H100_POWER's peak beside the
+   card's power limit.  Every makespan, energy and ratio here is the
+   simulator's output, not a measurement of the card; only the phase's
+   host seconds are the machine's.
 
 Each phase prints its host seconds as it ends.  The script prints a JSON
 line of kernel results, the card line, and last ``{"ok": true, "device":
@@ -1794,6 +1812,275 @@ def phase_refusal(torch, fa, ssd) -> None:
               f"inputs when it requires grad, launches without", flush=True)
 
 
+#: phase 7a: the paper's Fig. 4 as repro_torch.launch.fig4 runs it, pinned.
+#: (backend, workload) -> each arm's (makespan s, energy J, OOMs, early
+#: restarts, reconfigurations), arms in fig4.run_workload's order: baseline,
+#: scheme_a, scheme_b (and A+steal on the Ml mixes); on the LLM workloads
+#: the full-GPU sequential run, A without and A with the predictor.  These
+#: are the simulator's outputs (the device model calibrated to the paper's
+#: Tables 3-4, with A100_POWER or H100_POWER), not measurements of a card;
+#: tests/test_torch_scheduler.py holds this table against the reference.
+FIG4_PINNED = {
+    ("a100", "Hm1"): [(171, 15255, 0, 0, 50), (45.26, 8339.3, 0, 0, 7),
+        (85.8, 10569, 0, 0, 2)],
+    ("a100", "Hm2"): [(190.75, 17803.75, 0, 0, 50), (48.82, 9997.6, 0, 0, 7),
+        (54.885, 10331.175, 0, 0, 4)],
+    ("a100", "Hm3"): [(447, 25365, 0, 0, 100), (67.35, 4484.25, 0, 0, 7),
+        (67.35, 4484.25, 0, 0, 7)],
+    ("a100", "Hm4"): [(373, 46840, 0, 0, 50), (194, 36995, 0, 0, 2),
+        (194.3, 37011.5, 0, 0, 2)],
+    ("a100", "Ht1"): [(74.705, 7759.175, 0, 0, 15),
+        (35.8075, 5619.8125, 0, 0, 11), (38.19, 5750.85, 0, 0, 24)],
+    ("a100", "Ht2"): [(128.01, 19501.05, 0, 0, 18),
+        (90.305, 17427.275, 0, 0, 10), (101.43, 18039.15, 0, 0, 29)],
+    ("a100", "Ht3"): [(204.54, 24681.3, 0, 0, 36),
+        (106.905, 19311.375, 0, 0, 10), (127.83, 20462.25, 0, 0, 66)],
+    ("a100", "Ml1"): [(195.695, 20242.175, 0, 0, 14),
+        (101.36, 15053.75, 0, 0, 9), (103.421666667, 15167.1416667, 0, 0, 8),
+        (101.36, 15053.75, 0, 0, 9)],
+    ("a100", "Ml2"): [(237.45, 21737.25, 0, 0, 21), (97.05, 14015.25, 0, 0, 7),
+        (119.9, 15272, 0, 0, 4), (97.05, 14015.25, 0, 0, 7)],
+    ("a100", "Ml3"): [(296.91, 32920.65, 0, 0, 18),
+        (166.715, 25759.925, 0, 0, 2), (167.015, 25776.425, 0, 0, 2),
+        (166.715, 25759.925, 0, 0, 2)],
+    ("a100", "qwen2"): [(144.5, 23445.125, 0, 0, 1),
+        (360.43, 47367.1214286, 1, 0, 5), (161.77, 25372.6214286, 0, 1, 5)],
+    ("a100", "llama3"): [(100.5, 16306.125, 0, 0, 1),
+        (236.35, 31362.1214286, 1, 0, 5), (113.15, 17722.1214286, 0, 1, 5)],
+    ("a100", "flan_t5_train"): [(482, 78204.5, 0, 0, 4),
+        (626, 121010.139286, 4, 0, 5), (545.15, 108412.389286, 0, 4, 5)],
+    ("a100", "flan_t5"): [(195, 31638.75, 0, 0, 6),
+        (213.48, 47078.4642857, 6, 0, 5), (192.22, 42477.1642857, 0, 6, 5)],
+    ("h100", "Hm1"): [(171, 31575, 0, 0, 50), (45.26, 22144.5, 0, 0, 7),
+        (85.8, 25185, 0, 0, 2)],
+    ("h100", "Hm2"): [(190.75, 37743.75, 0, 0, 50), (48.82, 27099, 0, 0, 7),
+        (54.885, 27553.875, 0, 0, 4)],
+    ("h100", "Hm3"): [(447, 36025, 0, 0, 100), (67.35, 7551.25, 0, 0, 7),
+        (67.35, 7551.25, 0, 0, 7)],
+    ("h100", "Hm4"): [(373, 112350, 0, 0, 50), (244.32, 102699, 0, 0, 4),
+        (224.26, 101194.5, 0, 0, 3)],
+    ("h100", "Ht1"): [(74.705, 17302.875, 0, 0, 15), (32.24, 14118, 0, 0, 9),
+        (35.66, 14374.5, 0, 0, 23)],
+    ("h100", "Ht2"): [(128.01, 49538.25, 0, 0, 18),
+        (85.065, 46317.375, 0, 0, 13), (100.93, 47507.25, 0, 0, 28)],
+    ("h100", "Ht3"): [(204.54, 58390.5, 0, 0, 36),
+        (101.665, 50674.875, 0, 0, 13), (132.815, 53011.125, 0, 0, 58)],
+    ("h100", "Ml1"): [(195.695, 45058.375, 0, 0, 14),
+        (86.825, 36893.125, 0, 0, 11), (123.095, 39613.375, 0, 0, 9),
+        (86.645, 36879.625, 0, 0, 11)],
+    ("h100", "Ml2"): [(237.45, 45621.25, 0, 0, 21), (97.05, 35091.25, 0, 0, 7),
+        (119.9, 36805, 0, 0, 4), (97.05, 35091.25, 0, 0, 7)],
+    ("h100", "Ml3"): [(296.91, 75443.25, 0, 0, 18),
+        (162.87, 65390.25, 0, 0, 4), (168.545, 65815.875, 0, 0, 3),
+        (130.865, 62989.875, 0, 0, 4)],
+    ("h100", "qwen2"): [(144.5, 60509.375, 0, 0, 1),
+        (708.46, 141211.285714, 1, 0, 11), (311.14, 75937.2857143, 0, 1, 11)],
+    ("h100", "llama3"): [(100.5, 42084.375, 0, 0, 1),
+        (463.6, 93421.7857143, 1, 0, 11), (217.2, 52941.7857143, 0, 1, 11)],
+    ("h100", "flan_t5_train"): [(482, 201837.5, 0, 0, 4),
+        (786.4, 335926.428571, 4, 0, 11), (709.4, 304026.428571, 0, 4, 11)],
+    ("h100", "flan_t5"): [(195, 81656.25, 0, 0, 6),
+        (217.4, 128794.285714, 6, 0, 11), (193.06, 115968.785714, 0, 6, 11)],
+}
+#: makespan and energy are held at this relative error (Python's float sum
+#: may move the last bits between interpreters); the counts exactly
+FIG4_REL = 1e-9
+#: the headline figures, each derived from the table: Hm3 scheme A's gain
+#: over the baseline on the A100 (throughput, energy), and qwen2 on the
+#: A100 with the predictor (makespan s, early restarts, OOMs) against
+#: without it, each as (value, decimals) as the benches print them
+FIG4_HEADLINES = {"Hm3 scheme_a thpt x": (6.64, 2),
+                  "Hm3 scheme_a energy x": (5.66, 2),
+                  "qwen2 predict makespan s": (161.8, 1),
+                  "qwen2 no-predict makespan s": (360.4, 1)}
+#: phase 7b: the traced scheme B run of Hm3 on the A100 (with the
+#: predictor, as the reference's regret bench traces it), graded by the
+#: oracle at this node budget
+TRACE_MIX, ORACLE_NODE_BUDGET = "Hm3", 200_000
+TRACE_PINNED = {"oracle_makespan_s": 64.5, "oracle_exact": True,
+                "makespan_regret_s": 2.85, "graded": 193, "diverged": 14,
+                "worst_decision_regret_s": 4.3}
+#: phase 7c: the reference regret gate's single-device arms and mixes;
+#: EPS is the gate's own slack, one oracle duration quantum (the oracle
+#: floors durations to integer microseconds); the DP must prove its optimum
+#: on at least MIN_EXACT of the mixes; a graded decision's regret is held
+#: at DECISION_EPS (Q and V are read over the same DP node)
+REGRET_MIXES, REGRET_EPS = ("Hm3", "Hm4", "Ht1"), 1e-6
+REGRET_MIN_EXACT, DECISION_EPS = 2, 1e-9
+
+
+def close(a: float, b: float, rel: float) -> bool:
+    return abs(a - b) <= rel * max(abs(a), abs(b))
+
+
+def check_fig4(backend: str, out: dict) -> int:
+    """Every arm of every workload against FIG4_PINNED; the number of
+    arms checked."""
+    from repro_torch.launch import fig4
+
+    n = 0
+    for workload in fig4.WORKLOADS:
+        want = FIG4_PINNED[(backend, workload)]
+        got = [(m.makespan, m.energy_j, m.n_oom, m.n_early_restarts,
+                m.n_reconfigs) for m in out[workload].values()]
+        if len(got) != len(want) or not all(
+                close(g[0], w[0], FIG4_REL) and close(g[1], w[1], FIG4_REL)
+                and g[2:] == w[2:] for g, w in zip(got, want)):
+            raise AssertionError(f"Fig. 4 {backend} {workload}: {got}, "
+                                 f"pinned {want}")
+        n += len(got)
+    return n
+
+
+def phase_scheduler(counters, card: str) -> dict:
+    """7: the paper's batch scheduler through the port's entry points, on
+    the host of the card's machine (the scheduler models the device; it
+    launches nothing on it): (a) Fig. 4 on both MIG geometries against
+    FIG4_PINNED, (b) a traced Hm3 scheme B run through the flight recorder
+    and the regret oracle against TRACE_PINNED, (c) the regret gate.  The
+    kernels' launch counts are set to 0 before and must stay there."""
+    import tempfile
+
+    from repro_torch.core.mig_a100 import make_backend as make_a100
+    from repro_torch.core.planner.oracle import (BatchOracle,
+                                                 classes_from_jobs,
+                                                 classes_from_specs,
+                                                 energy_lower_bound_j)
+    from repro_torch.core.scheduler.energy import A100_POWER, H100_POWER
+    from repro_torch.core.scheduler.policies import (run_baseline,
+                                                     run_scheme_a,
+                                                     run_scheme_b)
+    from repro_torch.launch import fig4
+    from repro_torch.obs import Tracer, read_jsonl, write_chrome_trace
+    from repro_torch.obs.replay import load_replay, trace_regret
+
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    seconds = {}
+
+    # 7a. Fig. 4, every workload and arm, on both MIG geometries
+    t0 = time.perf_counter()
+    figs = {}
+    for name, (make_backend, power) in fig4.BACKENDS.items():
+        rows: list = []
+        figs[name] = fig4.run(rows, backend=make_backend(), power=power)
+        n = check_fig4(name, figs[name])
+        print(f"[scheduler] Fig. 4 on {name}: {n} arms of "
+              f"{len(fig4.WORKLOADS)} workloads equal the pinned table "
+              f"(rel {FIG4_REL}, counts exact); {len(rows)} rows", flush=True)
+    hm3, qwen2 = figs["a100"]["Hm3"], figs["a100"]["qwen2"]
+    thpt, energy, _, _ = fig4.ratios(hm3["scheme_a"], hm3["baseline"])
+    pred, nopred = qwen2["A (predict)"], qwen2["A (no predict)"]
+    headlines = {"Hm3 scheme_a thpt x": thpt, "Hm3 scheme_a energy x": energy,
+                 "qwen2 predict makespan s": pred.makespan,
+                 "qwen2 no-predict makespan s": nopred.makespan}
+    for key, (want, decimals) in FIG4_HEADLINES.items():
+        if round(headlines[key], decimals) != want:
+            raise AssertionError(f"{key}: {headlines[key]}, want {want}")
+    if (pred.n_early_restarts, pred.n_oom, nopred.n_oom) != (1, 0, 1):
+        raise AssertionError(f"qwen2: predict {pred.n_early_restarts} early "
+                             f"/ {pred.n_oom} OOM, no-predict {nopred.n_oom} "
+                             f"OOM, want 1 / 0, 1")
+    print(f"[scheduler] headlines (the simulator's, A100 model): "
+          f"{json.dumps(headlines)}", flush=True)
+    seconds["7a"] = time.perf_counter() - t0
+
+    # 7b. the flight recorder on a traced run, graded by the oracle
+    t0 = time.perf_counter()
+    backend = make_a100()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.jsonl")
+        with Tracer(meta={"policy": "scheme_b", "mix": TRACE_MIX},
+                    sink=path) as tracer:
+            traced = run_scheme_b(fig4.rodinia_mix(TRACE_MIX), backend,
+                                  A100_POWER, tracer=tracer)
+        plain = run_scheme_b(fig4.rodinia_mix(TRACE_MIX), backend,
+                             A100_POWER)
+        if dataclasses.asdict(traced) != dataclasses.asdict(plain):
+            raise AssertionError("the traced run's Metrics differ from the "
+                                 "untraced run's")
+        header, records = read_jsonl(path)
+        chrome = str(Path(tmp) / "trace.chrome.json")
+        write_chrome_trace(chrome, records, header["meta"])
+        n_events = len(json.loads(Path(chrome).read_text())["traceEvents"])
+        replay = load_replay(path)
+        reg = trace_regret(replay, node_budget=ORACLE_NODE_BUDGET)
+    if (classes_from_specs(replay.jobs)
+            != classes_from_jobs(fig4.rodinia_mix(TRACE_MIX))):
+        raise AssertionError("the trace's job classes differ from the mix's")
+    graded = [d for d in reg.decisions if d.regret_s is not None]
+    got = {"oracle_makespan_s": reg.oracle.makespan_s,
+           "oracle_exact": reg.oracle.exact,
+           "makespan_regret_s": reg.makespan_regret_s,
+           "graded": len(graded),
+           "diverged": sum(1 for d in graded if d.diverged),
+           "worst_decision_regret_s": max(d.regret_s for d in graded)}
+    print(f"[scheduler] traced {TRACE_MIX} scheme_b: {len(records)} records "
+          f"({header['meta']}), {n_events} Chrome trace events, Metrics "
+          f"equal to the untraced run's; regret vs the oracle: "
+          f"{json.dumps(got)}", flush=True)
+    for key, want in TRACE_PINNED.items():
+        ok = (got[key] == want if isinstance(want, (bool, int))
+              else close(got[key], want, FIG4_REL))
+        if not ok:
+            raise AssertionError(f"trace regret {key}: {got[key]}, pinned "
+                                 f"{want}")
+    if min(d.regret_s for d in graded) < -DECISION_EPS:
+        raise AssertionError("a graded decision's regret is negative")
+    seconds["7b"] = time.perf_counter() - t0
+
+    # 7c. the regret gate: the oracle bounds every arm's makespan and the
+    # admissible bound its energy, and scheme B is no further from the
+    # oracle than the baseline; 7b's oracle solved TRACE_MIX already
+    t0 = time.perf_counter()
+    gate = {}
+    for mix in REGRET_MIXES:
+        classes = classes_from_jobs(fig4.rodinia_mix(mix))
+        oracle = (reg.oracle if mix == TRACE_MIX else
+                  BatchOracle(backend, classes,
+                              node_budget=ORACLE_NODE_BUDGET).solve())
+        energy_lb = energy_lower_bound_j(A100_POWER, classes,
+                                         oracle.makespan_s)
+        arms = {"baseline": run_baseline(fig4.rodinia_mix(mix), backend,
+                                         A100_POWER),
+                "scheme_a": run_scheme_a(fig4.rodinia_mix(mix), backend,
+                                         A100_POWER, use_prediction=False),
+                "scheme_b": run_scheme_b(fig4.rodinia_mix(mix), backend,
+                                         A100_POWER)}
+        regret = {arm: m.makespan - oracle.makespan_s
+                  for arm, m in arms.items()}
+        energy_regret = {arm: m.energy_j - energy_lb
+                         for arm, m in arms.items()}
+        gate[mix] = {"oracle_s": oracle.makespan_s, "exact": oracle.exact,
+                     "regret_s": regret, "energy_regret_j": energy_regret}
+        print(f"[scheduler] regret gate {mix}: {json.dumps(gate[mix])}",
+              flush=True)
+        if min(regret.values()) < -REGRET_EPS:
+            raise AssertionError(f"{mix}: an arm beats the oracle's bound")
+        if min(energy_regret.values()) < -REGRET_EPS:
+            raise AssertionError(f"{mix}: an arm's energy beats the "
+                                 f"admissible bound")
+        if regret["scheme_b"] > regret["baseline"] + REGRET_EPS:
+            raise AssertionError(f"{mix}: scheme_b's regret exceeds the "
+                                 f"baseline's")
+    n_exact = sum(g["exact"] for g in gate.values())
+    if n_exact < REGRET_MIN_EXACT:
+        raise AssertionError(f"the oracle's DP was exact on {n_exact} of "
+                             f"{len(gate)} mixes, want {REGRET_MIN_EXACT}")
+    seconds["7c"] = time.perf_counter() - t0
+
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches in the scheduler: {launches}")
+    print(f"[scheduler] kernel launches in the phase: {launches}; host "
+          f"seconds {json.dumps(seconds)}", flush=True)
+    print(f"[scheduler] power: H100_POWER.p_peak_w {H100_POWER.p_peak_w} W "
+          f"(the model's figure, {H100_POWER.name}); the card's power limit "
+          f"{card.split(',')[-1].strip()} (nvidia-smi, {card})", flush=True)
+    return {"gate": gate, "trace": got, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1927,6 +2214,11 @@ def main() -> int:
         phase_train(torch, counters)
         phase_train_parity(torch)
         phase_refusal(torch, fa, ssd)
+
+    # 7. the paper's batch scheduler on the host: Fig. 4 on both MIG
+    # geometries, the flight recorder and the regret oracle, no kernel
+    with clock("7 scheduler"):
+        phase_scheduler(counters, card)
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
     print(json.dumps({"kernels": [*flash, *scan]}), flush=True)

@@ -14,10 +14,10 @@ the port's copy of ``repro.core.planner``.
 * :mod:`~repro_torch.core.planner.lookahead` — k-step plan-ahead carving
   over the compiled graph (bounded beam, never worse than greedy),
 * :mod:`~repro_torch.core.planner.planner` — ``PartitionPlanner.plan/
-  execute`` returning an explainable :class:`Plan`.
-
-The reference's offline regret oracle (``planner/oracle.py``) comes with
-the scheduler it replays.
+  execute`` returning an explainable :class:`Plan`,
+* :mod:`~repro_torch.core.planner.oracle` — the offline regret oracle: an
+  exact DP optimum over the compiled graph, admissible closed-form
+  bounds, and per-decision regret attribution for replayed audits.
 """
 
 from repro_torch.core.planner.actions import (Action, FreshAllocate, Grow,
@@ -44,20 +44,36 @@ from repro_torch.core.planner.ladders import (grow_ladder, grow_request,
                                               tight_profile)
 from repro_torch.core.planner.lookahead import (DEFAULT_BEAM_WIDTH,
                                                 carve_homogeneous, plan_carve)
+from repro_torch.core.planner.oracle import (BatchOracle, DecisionRegret,
+                                              GrowWaitBound, OracleClass,
+                                              OracleResult,
+                                              admissible_lower_bound_s,
+                                              attribute_decisions,
+                                              classes_from_jobs,
+                                              classes_from_specs,
+                                              energy_lower_bound_j,
+                                              grow_wait_sequence_bound,
+                                              solve_batch_oracle)
 from repro_torch.core.planner.planner import (Candidate, PartitionPlanner,
                                               Plan, PlanRequest, PlanResult)
 
 __all__ = [
-    "Action", "BEST_FIT_DEVICE_COST", "Candidate", "CostModel", "CostTerms",
-    "DEFAULT_BEAM_WIDTH", "ENERGY_AWARE_DEVICE_COST",
-    "FOLLOW_THE_SUN_ZONE_COST", "FreshAllocate", "Grow", "Migrate",
-    "PRICE_GREEDY_ZONE_COST", "PartitionPlanner", "Plan", "PlanRequest",
-    "PlanResult", "ReshapeFuseFission", "ReuseIdle", "SCHEME_B_COST",
-    "SERVING_GROW_COST", "SERVING_SHRINK_COST", "SHRINK_HORIZON_S",
-    "SHRINK_TRADE_W", "SLO_MISS_PENALTY_S", "Shrink", "TransitionGraph",
-    "Wait", "carve_homogeneous", "compile_transition_graph", "grow_ladder",
-    "grow_request", "normalized_reachability", "place_request",
+    "Action", "BEST_FIT_DEVICE_COST", "BatchOracle", "Candidate",
+    "CostModel", "CostTerms",
+    "DEFAULT_BEAM_WIDTH", "DecisionRegret", "ENERGY_AWARE_DEVICE_COST",
+    "FOLLOW_THE_SUN_ZONE_COST", "FreshAllocate",
+    "Grow", "GrowWaitBound", "Migrate", "OracleClass", "OracleResult",
+    "PRICE_GREEDY_ZONE_COST",
+    "PartitionPlanner", "Plan", "PlanRequest", "PlanResult",
+    "ReshapeFuseFission", "ReuseIdle", "SCHEME_B_COST", "SERVING_GROW_COST",
+    "SERVING_SHRINK_COST", "SHRINK_HORIZON_S", "SHRINK_TRADE_W",
+    "SLO_MISS_PENALTY_S", "Shrink", "TransitionGraph", "Wait",
+    "admissible_lower_bound_s", "attribute_decisions", "carve_homogeneous",
+    "classes_from_jobs", "classes_from_specs", "compile_transition_graph",
+    "energy_lower_bound_j", "grow_ladder",
+    "grow_request", "grow_wait_sequence_bound", "normalized_reachability",
+    "place_request",
     "placement_ladder", "plan_carve", "predicted_rung", "restart_rung",
     "serving_grow_cost", "serving_shrink_cost", "shrink_ladder",
-    "shrink_request", "tight_profile",
+    "shrink_request", "solve_batch_oracle", "tight_profile",
 ]

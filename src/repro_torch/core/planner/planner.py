@@ -14,10 +14,9 @@ evaluated on hypothetical successor states through the compiled transition
 graph, so a plan that ends in :class:`~repro_torch.core.planner.actions.Wait`
 is a true no-op on the device.
 
-The reference files an audit record of every plan and an instant of every
-commit with a flight recorder (``tracer``).  The port has no flight
-recorder yet (its ``obs`` layer is still to come), so ``plan`` and
-``execute`` refuse to run with a tracer set rather than drop the records.
+With a flight recorder set (``tracer``), ``plan`` files an audit record of
+every search and ``execute`` an instant of every committed partition, the
+reference's records.
 """
 
 from __future__ import annotations
@@ -131,9 +130,9 @@ class PlanResult:
 class PartitionPlanner:
     """Plan/execute partition actions against one PartitionManager."""
 
-    #: flight recorder + the device name it files records under; the port
-    #: has none yet, so it stays at the class default None (a set tracer
-    #: makes ``plan`` and ``execute`` raise, see ``_refuse_tracer``)
+    #: flight recorder (repro_torch.obs.Tracer) + the device name it files
+    #: records under; set by the event kernel when a run is traced, left
+    #: at the class defaults (no-op) otherwise
     tracer = None
     owner = ""
 
@@ -146,7 +145,6 @@ class PartitionPlanner:
 
     def plan(self, request: PlanRequest,
              model: CostModel | None = None) -> Plan:
-        self._refuse_tracer()
         model = model or self.model
         pm = self.pm
         backend = pm.backend
@@ -218,15 +216,15 @@ class PartitionPlanner:
                                         terms=terms, cost=model.cost(terms)))
 
         chosen = min(candidates, key=lambda c: c.cost) if candidates else None
-        return Plan(request=request, model=model, candidates=candidates,
+        plan = Plan(request=request, model=model, candidates=candidates,
                     chosen=chosen)
-
-    def _refuse_tracer(self) -> None:
         if self.tracer is not None:
-            raise NotImplementedError(
-                "PartitionPlanner.tracer is set, but the port has no flight "
-                "recorder to file plan audits and partition instants with: "
-                "obs/audit.py is still to port (ROADMAP queue 1, item 16)")
+            # imported lazily: repro_torch.obs.audit imports this module
+            from repro_torch.obs.audit import plan_audit_record
+            self.tracer.audit(plan_audit_record(
+                plan, t=self.tracer.now(), device=self.owner,
+                state=pm.state, backend=backend))
+        return plan
 
     @staticmethod
     def _relief(request: PlanRequest, profile: PartitionProfile) -> float:
@@ -275,7 +273,6 @@ class PartitionPlanner:
     def execute(self, plan: Plan) -> PlanResult | None:
         """Commit the plan's winning action; None when there is nothing to
         do (Wait without a pending release)."""
-        self._refuse_tracer()
         pm = self.pm
         request = plan.request
         if plan.chosen is None or isinstance(plan.chosen.action, Wait):
@@ -304,6 +301,13 @@ class PartitionPlanner:
                 pm.release(p)
             part = pm.commit_placement(action.placement)
             pm.n_reconfigs += len(action.consumed)
+        if self.tracer is not None:
+            self.tracer.instant(
+                "partition." + ("reshape" if isinstance(
+                    action, ReshapeFuseFission) else "create"),
+                device=self.owner, lane="planner", cat="partition",
+                profile=part.profile.name, pid=part.pid,
+                action=plan.action.describe())
         return PlanResult(partition=part, setup_s=request.reconfig_cost_s,
                           action=plan.action)
 

@@ -43,10 +43,13 @@ def migrate_state(state: Any, device: str | torch.device) -> Any:
 
 def with_oom_retry(run_step: Callable[..., Any], *,
                    backend: PartitionBackend,
-                   profile: PartitionProfile) -> Callable[..., Any]:
+                   profile: PartitionProfile,
+                   max_retries: int = 4) -> Callable[..., Any]:
     """Wrap a step callable with grow-on-OOM semantics: a CUDA
     out-of-memory error becomes :class:`NeedsLargerPartition` carrying the
-    next profile, which the scheduler handles as a requeue."""
+    next profile, which the scheduler handles as a requeue.
+    ``max_retries`` is the reference's keyword, accepted and, as there,
+    not read: the requeue loop belongs to the scheduler."""
 
     def wrapped(*args, **kwargs):
         try:

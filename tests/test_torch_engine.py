@@ -206,6 +206,29 @@ def test_with_oom_retry_turns_cuda_oom_into_restart():
         with_oom_retry(lambda: int("x"), backend=port, profile=g10)()
 
 
+@pytest.mark.parametrize("max_retries", [0, 4, 9])
+def test_with_oom_retry_takes_the_reference_max_retries(max_retries):
+    import inspect
+
+    import torch
+    from repro.core.restart import with_oom_retry as ref_retry
+    from repro_torch.core.restart import with_oom_retry
+    assert list(inspect.signature(with_oom_retry).parameters) == list(
+        inspect.signature(ref_retry).parameters)
+    port, g10 = MigH100Backend(), MigH100Backend().profiles[0]
+
+    def boom():
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    step = with_oom_retry(lambda x: x + 1, backend=port, profile=g10,
+                          max_retries=max_retries)
+    assert step(41) == 42
+    with pytest.raises(NeedsLargerPartition) as exc:
+        with_oom_retry(boom, backend=port, profile=g10,
+                       max_retries=max_retries)()
+    assert exc.value.profile.mem_gb == 20.0
+
+
 def test_migrate_state_moves_every_tensor(weights):
     import torch
     from repro_torch.core.restart import migrate_state
