@@ -73,6 +73,18 @@ Phases, each raising on failure (the script then exits non-zero):
    printed as drawn, see check_dense_prefill; pixtral's also with 256 stub
    patches), the init's own peak memory, then the f32 smoke config's
    greedy tokens on both paths;
+4g. cache variants, on 4e's gemma3-27b weights and traffic before they
+   are freed: the windowed ring cache (52 local layers keep rings of 1024
+   slots) and the int8 cache.  The plain prefill and 8 decode steps
+   teacher-forced on the plain run's tokens, then each variant's prefill
+   (62 sm90 flash launches, 52 windowed): every ring slot p mod 1024 and
+   every global cache equal to the plain cache bit for bit; the int8
+   quantizer within half a scale step of what it quantized, layer 0 within
+   one step of the plain cache; each variant's teacher-forced logits held
+   to plain decode's (windowed at 5e-2, int8 at 0.02); then ServeEngine.run
+   with each variant and with the plain cache again (62 / 52 launches
+   each), and decode ms/step and the serving peaks (accountant and
+   allocator) of plain, windowed, int8 and plain again;
 4f. serving: the MoE configs at their published widths and expert counts,
    cut in depth to fit the card (configs.ONE_CARD_LAYERS), each on freed
    memory through ServeEngine.run: grok-1-314b, 6 of 64 layers (6 flash
@@ -111,7 +123,13 @@ Phases, each raising on failure (the script then exits non-zero):
    is no more than the baseline's; then H100_POWER's peak beside the
    card's power limit.  Every makespan, energy and ratio here is the
    simulator's output, not a measurement of the card; only the phase's
-   host seconds are the machine's.
+   host seconds are the machine's;
+8. serving simulator and fleet: launch/serving_sim.py (the reference's
+   benchmarks/bench_serving.py: 8 arms, A100 and H100 x full / static /
+   dynamic / dynamic+pred, 300 Poisson requests at 2.0/s) and
+   launch/fleet_sim.py (bench_fleet.py: 3 fleet shapes x 4 routers), each
+   with its checks, on the host; no kernel launch; every figure is the
+   simulator's, only the seconds are the machine's.
 
 Each phase prints its host seconds as it ends.  The script prints a JSON
 line of kernel results, the card line, and last ``{"ok": true, "device":
@@ -1098,12 +1116,13 @@ def check_dense_prefill(torch, cfg, params, tokens, context=CONTEXT) -> dict:
     return out
 
 
-def phase_dense(torch, counters, arch, gen) -> dict:
+def phase_dense(torch, counters, arch, gen, clock) -> list[dict]:
     """4e: one dense or VLM config at full width and depth on freed memory:
     its init's own peak memory, then phase_serving with every prefill
     layer on the flash kernel's sm90 route (gemma3-27b's 52 local layers
-    with their window), then the f32 smoke config's tokens on both
-    paths."""
+    with their window), for gemma3-27b then phase 4g on the same weights,
+    then the f32 smoke config's tokens on both paths.  Returns the serving
+    stats of each ServeEngine.run (plain, then 4g's variants)."""
     from repro_torch.configs import get_config
     from repro_torch.models import registry, transformer
     from repro_torch.models.module import param_bytes
@@ -1130,10 +1149,238 @@ def phase_dense(torch, counters, arch, gen) -> dict:
          "ssd_scan": {"sm90": 0, "simt": 0}},
         prompt_len=prompt_len, context=context, want_windowed=n_windowed)
     serving.update(init)
+    runs = [serving]
+    if arch == VARIANT_ARCH:
+        with clock(f"4g {arch} cache variants"):
+            runs += phase_cache_variants(torch, counters, cfg, params,
+                                         serving, prompt_len, context)
     del params
     torch.cuda.empty_cache()
     phase_smoke_tokens(torch, arch, ("attn_impl",))
-    return serving
+    return runs
+
+
+#: phase 4g: the reference's decode cache variants (the windowed ring on
+#: the local layers, the int8 cache), served on phase 4e's gemma3-27b
+#: weights and traffic
+VARIANT_ARCH = "gemma3-27b"
+CACHE_VARIANTS = {"windowed_cache": "windowed", "kv_quant": "int8"}
+#: decode steps teacher-forced on the plain run's tokens, each variant's
+#: logits held against plain decode's
+VARIANT_DECODE_STEPS = 8
+#: int8 decode logits vs plain: the reference's own limit for its int8
+#: cache (tests/test_sharding_and_layers.py:222-240); the windowed ring is
+#: held at phase 4e's bf16 limit, PREFILL_REL_TOL
+INT8_LOGITS_REL_TOL = 0.02
+
+
+def variant_logits(torch, cfg, params, tokens, feed, context, check):
+    """The engine's prefill into ``cfg``'s cache, every layer on the flash
+    kernel's sm90 route (the local ones with their window), then
+    ``check(caches)`` on the filled cache, then len(feed[0]) decode steps
+    fed ``feed`` [B, n] at positions S.. (teacher forcing).  Returns the
+    last logits of the prefill and of each step, f32 [B, V], and what
+    ``check`` returned."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import registry, transformer
+    n = cfg.n_layers
+    n_windowed = sum(w is not None for w, _ in transformer._layer_masks(cfg))
+    with torch.inference_mode():
+        caches = registry.init_caches(cfg, tokens.shape[0], context, "cuda")
+        windowed = fa.windowed_launches
+        with RouteCount(fa, {"sm90": n, "simt": 0},
+                        f"{cfg.name} prefill into {sorted(caches)}"):
+            logits, caches = registry.prefill_caches(params, cfg, tokens,
+                                                     caches)
+        if fa.windowed_launches - windowed != n_windowed:
+            raise AssertionError("windowed flash launches "
+                                 f"{fa.windowed_launches - windowed}")
+        out = [logits[:, -1].float()]
+        checks = check(caches)
+        s = tokens.shape[1]
+        for i in range(feed.shape[1]):
+            lg, caches = registry.decode_step(params, cfg, feed[:, i:i + 1],
+                                              s + i, caches)
+            out.append(lg[:, -1].float())
+        del caches
+    if not all(bool(torch.isfinite(x).all()) for x in out):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return out, checks
+
+
+def check_ring(torch, cfg, caches, plain, s) -> dict:
+    """Each local layer's ring slot p mod W equals the plain cache's
+    position p bit for bit for p in [S-W, S); each global layer's cache
+    equals the plain cache's layer at [0, S)."""
+    from repro_torch.models import transformer
+    kinds = {"ring": 0, "plain": 0}
+    for i in range(cfg.n_layers):
+        kind, (k, v) = transformer._layer_cache(caches, cfg, i)
+        kinds[kind] += 1
+        for got, want in ((k, plain["k"][i]), (v, plain["v"][i])):
+            if kind == "ring":
+                w = got.shape[1]
+                pos = torch.arange(max(0, s - w), s, device="cuda")
+                same = torch.equal(got[:, pos % w], want[:, pos])
+            else:
+                same = torch.equal(got[:, :s], want[:, :s])
+            if not same:
+                raise AssertionError(f"layer {i} ({kind}): the cache "
+                                     f"differs from the plain cache's")
+    print(f"[4g] windowed: {kinds['ring']} rings of "
+          f"{caches['local_k'].shape[3]} slots equal the plain cache's last "
+          f"positions bit for bit, {kinds['plain']} global caches equal "
+          f"the plain cache's layers", flush=True)
+    n_local = sum(w is not None for w, _ in transformer._layer_masks(cfg))
+    if kinds != {"ring": n_local, "plain": cfg.n_layers - n_local}:
+        raise AssertionError(f"layout {kinds}, {n_local} local layers")
+    return {"ring_layers": kinds["ring"], "global_layers": kinds["plain"]}
+
+
+@contextlib.contextmanager
+def recorded_quantizer(attention, steps: list):
+    """Records, for each quantize_kv call inside the block, the largest
+    |dequantize_kv(codes, scale) - x| in scale steps over its (token,
+    head) rows."""
+    quantize = attention.quantize_kv
+
+    def record(x):
+        codes, scale = quantize(x)
+        err = (codes.float() * scale - x.float()).abs() / scale
+        steps.append(float(err.max()))
+        return codes, scale
+
+    attention.quantize_kv = record
+    try:
+        yield
+    finally:
+        attention.quantize_kv = quantize
+
+
+def check_int8(torch, caches, plain, s, quantizer_steps) -> dict:
+    """Every layer's stored K/V against the K/V it quantized: within half
+    a scale step (round to nearest; ``quantizer_steps`` from
+    recorded_quantizer).  The first layer, whose input is the plain run's,
+    dequantized against the plain cache: within one scale step per (token,
+    head).  The later layers' distance to the plain cache is printed in
+    scale steps with no limit: their inputs differ from the plain run's by
+    the int8 attention of the layers before."""
+    worst_quant = max(quantizer_steps)
+    dist = []
+    for name in ("k", "v"):
+        codes, scales = caches[f"{name}_q"][:, :, :s], \
+            caches[f"{name}_s"][:, :, :s]
+        for i in range(codes.shape[0]):
+            err = (codes[i].float() * scales[i]
+                   - plain[name][i][:, :s].float()).abs() / scales[i]
+            dist.append(float(err.max()))
+    n = len(dist) // 2
+    first = max(dist[0], dist[n])
+    later = max(dist[1:n] + dist[n + 1:])
+    print(f"[4g] int8: {len(quantizer_steps)} quantize_kv calls, worst "
+          f"|dequantized - quantized input| {worst_quant:.4f} scale steps "
+          f"(limit 0.5); layer 0 vs the plain cache {first:.4f} steps "
+          f"(limit 1); layers 1..{n - 1} vs the plain cache up to "
+          f"{later:.3f} steps (no limit)", flush=True)
+    if len(quantizer_steps) != 2 * n or not worst_quant <= 0.5 + 1e-3:
+        raise AssertionError(f"quantizer: {worst_quant} steps over "
+                             f"{len(quantizer_steps)} calls")
+    if not first <= 1.0:
+        raise AssertionError(f"int8 layer 0: {first} scale steps from the "
+                             f"plain cache")
+    return {"int8_quantizer_max_steps": worst_quant,
+            "int8_layer0_vs_plain_max_steps": first,
+            "int8_later_layers_vs_plain_max_steps": later}
+
+
+def phase_cache_variants(torch, counters, cfg, params, plain_serving,
+                         prompt_len, context) -> list[dict]:
+    """4g: gemma3-27b's decode cache variants on phase 4e's weights and
+    traffic.  The plain prefill and VARIANT_DECODE_STEPS decode steps
+    teacher-forced on the plain run's tokens give the reference; each
+    variant's prefill (62 sm90 flash launches, 52 windowed) fills its
+    cache as check_ring or check_int8 holds it, and its teacher-forced
+    logits are held to plain decode's (windowed at PREFILL_REL_TOL, int8 at
+    INT8_LOGITS_REL_TOL).  Then ServeEngine.run with each variant and
+    with the plain cache again (the launches counted as phase_serving
+    counts them), and decode ms/step and the serving peaks of plain, both
+    variants and plain again side by side."""
+    from repro_torch.core.memory.accountant import pytree_nbytes
+    from repro_torch.models import attention, registry
+    _, tokens = serving_requests(torch, cfg, prompt_len)
+    s = tokens.shape[1]
+    feed = torch.tensor([g[:VARIANT_DECODE_STEPS]
+                         for g in plain_serving["generated"]],
+                        dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        plain = registry.init_caches(cfg, tokens.shape[0], context, "cuda")
+        logits, plain = registry.prefill_caches(params, cfg, tokens, plain)
+        ref = [logits[:, -1].float()]
+        # the decode steps write positions S.., which no check reads
+        for i in range(feed.shape[1]):
+            lg, plain = registry.decode_step(params, cfg, feed[:, i:i + 1],
+                                             s + i, plain)
+            ref.append(lg[:, -1].float())
+    configs = {name: dataclasses.replace(cfg, **{flag: True})
+               for flag, name in CACHE_VARIANTS.items()}
+    checks = {}
+    for flag, name in CACHE_VARIANTS.items():
+        c = configs[name]
+        steps: list[float] = []
+        if flag == "kv_quant":
+            with recorded_quantizer(attention, steps):
+                out, held = variant_logits(
+                    torch, c, params, tokens, feed, context,
+                    lambda caches: check_int8(torch, caches, plain, s,
+                                              steps))
+            tol = INT8_LOGITS_REL_TOL
+        else:
+            out, held = variant_logits(
+                torch, c, params, tokens, feed, context,
+                lambda caches: check_ring(torch, c, caches, plain, s))
+            tol = PREFILL_REL_TOL
+        rels = [rel_err(o, r) for o, r in zip(out, ref)]
+        print(f"[4g] {name}: last logits vs plain, prefill then "
+              f"{len(rels) - 1} teacher-forced decode steps: rel err "
+              f"{', '.join(f'{r:.3e}' for r in rels)} (tol {tol})",
+              flush=True)
+        if not max(rels) < tol:
+            raise AssertionError(f"{name} logits disagree with plain "
+                                 f"decode's: {rels}")
+        checks[name] = {**held, "logits_vs_plain_rel_err": rels}
+    del plain, ref
+    torch.cuda.empty_cache()
+
+    n = cfg.n_layers
+    runs = {"plain": plain_serving}
+    # plain again after the variants: decode ms/step moves between runs
+    # (host-bound), so plain is timed on both sides of them
+    configs = {"plain": cfg, **configs, "plain again": cfg}
+    for name in list(configs)[1:]:
+        runs[name] = phase_serving(
+            torch, counters, configs[name], params,
+            lambda *a, held=checks.get(name, {}): held,
+            {"flash_attention": n, "ssd_scan": 0},
+            {"flash_attention": {"sm90": n, "simt": 0},
+             "ssd_scan": {"sm90": 0, "simt": 0}},
+            prompt_len=prompt_len, context=context,
+            want_windowed=plain_serving["flash_windowed_launches"],
+            run=f"{cfg.name} {name}")
+    plain_peak = plain_serving["max_memory_allocated_gb"]
+    for name, c in configs.items():
+        r = runs[name]
+        r["cache_gib"] = pytree_nbytes(registry.init_caches(
+            c, N_REQ, context, "meta")) / 2**30
+        print(f"[4g] {cfg.name} {name:<11} cache {r['cache_gib']:.3f} GiB: "
+              f"prefill {r['prefill_ms']:.2f} ms, decode "
+              f"{r['decode_ms_per_step']:.2f} ms/step, peak "
+              f"{r['accountant_peak_in_use_gb']:.3f} GiB (accountant) / "
+              f"{r['max_memory_allocated_gb']:.3f} GiB (allocator), "
+              f"{r['max_memory_allocated_gb'] - plain_peak:+.3f} GiB vs "
+              f"plain", flush=True)
+        if name in checks and not r["max_memory_allocated_gb"] < plain_peak:
+            raise AssertionError(f"{name}: serving peak not below plain's")
+    return [runs[name] for name in list(configs)[1:]]
 
 
 #: tokens a moe_layer call takes in the MoE check: at S=1 its dispatch
@@ -1374,7 +1621,7 @@ def phase_moe(torch, counters, arch, gen) -> dict:
 
 def phase_serving(torch, counters, cfg, params, check_prefill,
                   want_launches, want_routes, prompt_len=PROMPT_LEN,
-                  context=CONTEXT, want_windowed=0) -> dict:
+                  context=CONTEXT, want_windowed=0, run=None) -> dict:
     """Full-width serving through ServeEngine.run: ``check_prefill`` holds
     the prefill's last logits on the kernel path against the plain path,
     then the run goes with every kernel's launch count set to 0 just
@@ -1383,7 +1630,9 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     module's name to its launches by route, and ``want_windowed`` is the
     flash launches with a sliding window among them.  For the
     encoder-decoder the encoder (over the engine's zero frames) is timed on
-    its own before the decoder's prefill."""
+    its own before the decoder's prefill.  ``run`` names the run in the
+    kernels line (default the arch); the stats returned carry the
+    generated tokens under ``generated`` (not printed)."""
     from repro_torch.core.mig_h100 import MigH100Backend
     from repro_torch.models import registry
     from repro_torch.serving.engine import EngineConfig, ServeEngine
@@ -1439,7 +1688,8 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     if len(engine.accountant.history) != 1 + MAX_NEW:
         raise AssertionError("accountant missed iterations")
     stats = {
-        "arch": cfg.name, "requests": N_REQ, "prompt_len": prompt_len,
+        "arch": cfg.name, "run": run or cfg.name, "requests": N_REQ,
+        "prompt_len": prompt_len,
         "new_tokens": MAX_NEW, "max_context": context, **timings,
         "run_s": run_s,
         "decode_ms_per_step": (run_s * 1e3 - sum(timings.values()))
@@ -1453,6 +1703,7 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     }
     print(f"[serving] {json.dumps(stats)}", flush=True)
     print(f"[serving] req 0: {out[0].generated[:16]}", flush=True)
+    stats["generated"] = [list(r.generated) for r in out]
     return stats
 
 
@@ -1491,7 +1742,8 @@ def set_launches(entries, serving) -> None:
     """Each kernels-line entry of a shape the served arch calls takes its
     route's launch count from that arch's ServeEngine.run (on the sm90
     route the windowed launches go to the windowed shape, the rest to the
-    other); ``launches`` sums the runs of the archs sharing the shape."""
+    other); ``launches`` sums the runs of the archs sharing the shape, a
+    run of each cache variant included."""
     for entry in entries:
         if serving["arch"] not in entry["archs"]:
             continue
@@ -1500,7 +1752,7 @@ def set_launches(entries, serving) -> None:
                 entry["kernel_route"] == "sm90":
             windowed = serving["flash_windowed_launches"]
             n = windowed if entry["window"] else n - windowed
-        entry.setdefault("launches_by_arch", {})[serving["arch"]] = n
+        entry.setdefault("launches_by_arch", {})[serving["run"]] = n
         entry["launches"] = sum(entry["launches_by_arch"].values())
 
 
@@ -2081,6 +2333,39 @@ def phase_scheduler(counters, card: str) -> dict:
     return {"gate": gate, "trace": got, "seconds": seconds}
 
 
+def phase_host_sims(counters) -> dict:
+    """8: the paper's request-level LLM serving simulator and the fleet
+    through the port's launchers on the host of the card's machine (both
+    model the devices and launch nothing on them): launch/serving_sim.py's
+    8 arms (A100 and H100, full / static / dynamic / dynamic+pred) at the
+    reference bench's traffic, 300 Poisson requests at 2.0/s, seed 11,
+    and launch/fleet_sim.py's 12 (three fleet shapes, four routers), each
+    with the reference bench's checks, which raise.  Every goodput,
+    latency and Joule printed is the simulator's (the LLMServingModel
+    coefficients, the scheduler's device model), not the card's; only the
+    seconds are the machine's.  The kernels' launch counts are set to 0
+    before and must stay there."""
+    from repro_torch.launch import fleet_sim, serving_sim
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    seconds, rows = {}, {}
+    for name, launcher in (("serving_sim", serving_sim),
+                           ("fleet_sim", fleet_sim)):
+        t0 = time.perf_counter()
+        rows[name] = []
+        launcher.run(rows[name])
+        seconds[name] = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches in the host sims: {launches}")
+    print(f"[host sims] the launchers' checks hold; {len(rows['serving_sim'])}"
+          f" serving and {len(rows['fleet_sim'])} fleet rows (the "
+          f"simulator's figures, not the card's); kernel launches "
+          f"{launches}; host seconds {json.dumps(seconds)}", flush=True)
+    return {"seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2200,7 +2485,8 @@ def main() -> int:
     # prefill on the flash kernel, each on its own memory
     for arch in DENSE_ARCHS:
         with clock(f"4e {arch} serving"):
-            set_launches(flash, phase_dense(torch, counters, arch, gen))
+            for run in phase_dense(torch, counters, arch, gen, clock):
+                set_launches(flash, run)
 
     # 4f. the MoE configs at full width, cut in depth to fit the card, the
     # flash kernel on every layer without a chunk, each on its own memory
@@ -2219,6 +2505,10 @@ def main() -> int:
     # geometries, the flight recorder and the regret oracle, no kernel
     with clock("7 scheduler"):
         phase_scheduler(counters, card)
+
+    # 8. the serving simulator and the fleet on the host, no kernel
+    with clock("8 serving simulator and fleet"):
+        phase_host_sims(counters)
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
     print(json.dumps({"kernels": [*flash, *scan]}), flush=True)

@@ -16,10 +16,10 @@ Imports are deliberately lazy inside :func:`simulate`: the legacy shims
 live in the modules this facade drives, and a module-level import either
 way would cycle.
 
-The port runs the single-device batch kinds.  The kinds ``serving``,
-``fleet`` and ``cluster`` drive modules the port has not copied yet (the
-serving simulator, the fleet, the cluster; ROADMAP items 16d, 16c and
-16e), so they raise ``NotImplementedError`` naming the item.
+The port runs the single-device batch kinds, the serving simulator and
+the fleet.  The kind ``cluster`` drives a module the port has not copied
+yet (ROADMAP item 16e), so it raises ``NotImplementedError`` naming the
+item.
 """
 
 from __future__ import annotations
@@ -33,8 +33,6 @@ KINDS = ("baseline", "scheme_a", "scheme_b", "serving", "fleet", "cluster")
 #: the kinds whose modules the port has not copied yet -> the ROADMAP item
 #: that brings them
 _NOT_PORTED = {
-    "serving": "the serving simulator (ROADMAP item 16d)",
-    "fleet": "the fleet (ROADMAP item 16c)",
     "cluster": "the cluster layer (ROADMAP item 16e)",
 }
 
@@ -132,6 +130,36 @@ def simulate(spec: RunSpec):
         sim = DeviceSim(spec.backend, spec.power, spec.use_prediction,
                         policy=policy.name)
         return EventKernel([sim], policy, tracer=spec.tracer).run(spec.jobs)
+    if kind == "serving":
+        from repro_torch.core.scheduler.kernel import EventKernel
+        from repro_torch.serving.sim import (LLMServingModel, ServingDevice,
+                                             ServingPolicy)
+        counts: dict[str, int] = {}
+        devices = []
+        for m in spec.devices or []:
+            idx = counts.get(m, 0)
+            counts[m] = idx + 1
+            devices.append(ServingDevice(m, name=f"{m}-{idx}"))
+        if spec.admission is not None:
+            for dev in devices:
+                dev.admission = spec.admission
+        policy = ServingPolicy(spec.serving_model or LLMServingModel(),
+                               spec.serving)
+        return EventKernel(devices, policy,
+                           tracer=spec.tracer).run(spec.requests)
+    if kind == "fleet":
+        from repro_torch.core.scheduler.kernel import EventKernel
+        from repro_torch.fleet.devices import WAKE_LATENCY_S
+        from repro_torch.fleet.energy import FleetEnergyIntegrator
+        from repro_torch.fleet.orchestrator import FleetPolicy
+        devices = list(spec.devices or [])
+        wake = (WAKE_LATENCY_S if spec.wake_latency_s is None
+                else spec.wake_latency_s)
+        energy = spec.energy or FleetEnergyIntegrator(devices)
+        policy = FleetPolicy(spec.router, wake, energy,
+                             admission=spec.admission)
+        return EventKernel(devices, policy,
+                           tracer=spec.tracer).run(spec.jobs)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"RunSpec.kind {kind!r} needs {_NOT_PORTED[kind]}, which the "

@@ -7,7 +7,11 @@ the hand-written flash kernel (:func:`repro_torch.kernels.ops.flash_mha`).
 Cross and bidirectional attention stay plain, as in the reference.
 
 KV caches are updated in place: decode and prefill write the new K/V into
-the cache tensors they are given and return those same tensors.
+the cache tensors they are given and return those same tensors.  Besides
+the plain [B,C,KH,hd] cache there are the reference's two decode cache
+variants: a ring of the last W positions for a sliding-window layer and
+an int8 cache with per-(token, head) f32 scales; decode attention over
+them is plain, as the reference's is.
 """
 
 from __future__ import annotations
@@ -154,25 +158,70 @@ def mha_full(params: dict, x: torch.Tensor, cfg: ModelConfig,
                      params["wo"])
 
 
+def _prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, store,
+             window: int | None, chunk: int | None) -> torch.Tensor:
+    """Causal self attention over a prompt x:[B,S,d] at positions 0..S-1.
+    ``store(k, v)`` writes the prompt's K/V into a cache and returns them
+    as token-by-token decode reads them back from it; attention runs over
+    those, cast to q's dtype, so the cache rounds K/V as decode does."""
+    b_, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b_, s)
+    q, k, v = _project_qkv(params, x, cfg, positions, rope=not _no_rope(cfg))
+    k, v = store(k, v)
+    out = _attend_self(q, k.to(q.dtype), v.to(q.dtype), cfg, positions[0],
+                       window, chunk)
+    return _out_proj(out, params["wo"])
+
+
 def mha_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache_k: torch.Tensor, cache_v: torch.Tensor,
                 window: int | None = None,
                 chunk: int | None = None) -> torch.Tensor:
     """Causal self attention over a prompt x:[B,S,d] at positions 0..S-1
-    that also fills cache_k/v:[B,C,KH,hd] (in place) at 0..S-1.
+    that also fills cache_k/v:[B,C,KH,hd] (in place) at 0..S-1."""
+    def store(k, v):
+        s = k.shape[1]
+        cache_k[:, :s] = k.to(cache_k.dtype)
+        cache_v[:, :s] = v.to(cache_v.dtype)
+        return cache_k[:, :s], cache_v[:, :s]
 
-    Attention reads the K/V back from the cache, cast to q's dtype, as
-    token-by-token decode does, so a bf16 cache rounds K/V the same way.
-    """
-    b_, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b_, s)
-    q, k, v = _project_qkv(params, x, cfg, positions, rope=not _no_rope(cfg))
-    cache_k[:, :s] = k.to(cache_k.dtype)
-    cache_v[:, :s] = v.to(cache_v.dtype)
-    out = _attend_self(q, cache_k[:, :s].to(q.dtype),
-                       cache_v[:, :s].to(q.dtype), cfg, positions[0],
-                       window, chunk)
-    return _out_proj(out, params["wo"])
+    return _prefill(params, x, cfg, store, window, chunk)
+
+
+def mha_prefill_windowed(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                         cache_k: torch.Tensor, cache_v: torch.Tensor,
+                         window: int | None = None) -> torch.Tensor:
+    """A local layer's prefill into a ring of W slots, cache_k/v:
+    [B,W,KH,hd] (in place): attention over the prompt's K/V rounded to the
+    ring's dtype, with the layer's ``window``; then positions
+    max(0, S-W)..S-1 go to slots p mod W, which is what a replay through
+    :func:`mha_decode_windowed` leaves in the ring."""
+    def store(k, v):
+        s, w = k.shape[1], cache_k.shape[1]
+        k, v = k.to(cache_k.dtype), v.to(cache_v.dtype)
+        lo = max(0, s - w)
+        slots = torch.arange(lo, s, device=k.device) % w
+        cache_k[:, slots] = k[:, lo:]
+        cache_v[:, slots] = v[:, lo:]
+        return k, v
+
+    return _prefill(params, x, cfg, store, window, None)
+
+
+def mha_prefill_quant(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                      k_q, k_s, v_q, v_s, window: int | None = None,
+                      chunk: int | None = None) -> torch.Tensor:
+    """The prefill into an int8 cache (in place at 0..S-1): K/V quantized
+    per (token, head), attention over their dequantized values, as
+    :func:`mha_decode_quant` reads them back."""
+    def store(k, v):
+        s = k.shape[1]
+        for t, codes, scales in ((k, k_q, k_s), (v, v_q, v_s)):
+            codes[:, :s], scales[:, :s] = quantize_kv(t)
+        return (dequantize_kv(k_q[:, :s], k_s[:, :s], k.dtype),
+                dequantize_kv(v_q[:, :s], v_s[:, :s], v.dtype))
+
+    return _prefill(params, x, cfg, store, window, chunk)
 
 
 def mha_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -246,3 +295,86 @@ def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, context: int,
     shape = (n_layers, batch, context, kh, hd)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def mha_decode_windowed(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                        cache_k: torch.Tensor, cache_v: torch.Tensor,
+                        index: int):
+    """One-token decode against a ring-buffer cache of ``window`` slots.
+
+    cache_k/v: [B, W, KH, hd].  Slot ``index % W`` is overwritten (in
+    place); slot j holds absolute position p_j = index - ((index - j) mod
+    W), i.e. exactly the last W positions — the sliding window needs no
+    extra mask beyond p_j >= 0 (warmup).
+    """
+    w = cache_k.shape[1]
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions,
+                                   rope=not _no_rope(cfg))
+    slot = index % w
+    cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+    j = torch.arange(w, device=x.device)
+    k_pos = index - (index - j) % w
+    bias = torch.where(k_pos >= 0, 0.0, NEG_INF).float()[None, :]
+    out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias, cfg)
+    return _out_proj(out, params["wo"]), cache_k, cache_v
+
+
+# -- int8-quantized KV cache (decode) -----------------------------------------
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8: x [B,S,KH,hd] ->
+    (q int8 [B,S,KH,hd], scale f32 [B,S,KH,1]).  ``torch.round`` rounds
+    half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
+def init_kv_cache_quant(cfg: ModelConfig, n_layers: int, batch: int,
+                        context: int, device: str | torch.device = "cpu"):
+    """int8 caches + f32 scales, stacked [L, B, C, KH, hd] / [.., 1]."""
+    kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (n_layers, batch, context, kh, hd)
+    sshape = (n_layers, batch, context, kh, 1)
+    return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_s": torch.zeros(sshape, dtype=torch.float32, device=device)}
+
+
+def mha_decode_quant(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                     k_q, k_s, v_q, v_s, index: int,
+                     window: int | None = None, chunk: int | None = None):
+    """One-token decode against an int8 KV cache (written in place at
+    ``index``).  Returns (y, (k_q, k_s, v_q, v_s)).
+
+    Halves the decode cache's bytes; per-(token, head) scales keep the
+    logit error within bf16 noise (~2% relative in the reference's tests).
+    """
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions,
+                                   rope=not _no_rope(cfg))
+    for t, codes, scales in ((k_new, k_q, k_s), (v_new, v_q, v_s)):
+        codes[:, index:index + 1], scales[:, index:index + 1] = \
+            quantize_kv(t)
+    k_pos = torch.arange(k_q.shape[1], device=x.device)
+    valid = k_pos <= index
+    if window is not None:
+        valid &= (index - k_pos) < window
+    if chunk is not None:
+        valid &= (k_pos // chunk) == (index // chunk)
+    bias = torch.where(valid, 0.0, NEG_INF).float()[None, :]
+    k = dequantize_kv(k_q, k_s, q.dtype)
+    v = dequantize_kv(v_q, v_s, q.dtype)
+    out = _sdpa(q, k, v, bias, cfg)
+    return _out_proj(out, params["wo"]), (k_q, k_s, v_q, v_s)

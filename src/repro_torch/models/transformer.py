@@ -7,6 +7,9 @@ for global layers) and full-sequence attention can reach the flash kernel.
 MoE configs put their experts in ``layers`` (grok-1, a MoE FFN in every
 layer) or interleave separate ``moe_layers`` and ``dense_layers`` stacks
 (llama4, ``moe_every`` > 1); :func:`layer_ffns` gives each layer its FFN.
+Dense and VLM configs may take the reference's decode cache variants, an
+int8 cache (``kv_quant``) or rings on the local layers
+(``windowed_cache``); :func:`_layer_cache` gives each layer its cache.
 """
 
 from __future__ import annotations
@@ -54,6 +57,35 @@ def _layer_masks(cfg: ModelConfig) -> list[tuple[int | None, int | None]]:
         else:
             out.append((window, None))
     return out
+
+
+def windowed_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(n_groups, group_size, n_tail) for the windowed-cache decode layout:
+    groups of (global_every) layers = (ge-1) local + 1 global; trailing
+    local layers form the tail (gemma3: 62 = 10x6 + 2)."""
+    ge = cfg.global_every
+    n_groups = cfg.n_layers // ge
+    return n_groups, ge, cfg.n_layers - n_groups * ge
+
+
+def _layer_cache(caches: dict, cfg: ModelConfig, i: int
+                 ) -> tuple[str, tuple[torch.Tensor, ...]]:
+    """Layer i's attention cache, as views of ``caches``: ("int8", (k_q,
+    k_s, v_q, v_s)), ("ring", (k, v)) for a local layer of the windowed
+    layout, or ("plain", (k, v))."""
+    if "k_q" in caches:
+        return "int8", tuple(caches[n][i] for n in ("k_q", "k_s", "v_q",
+                                                     "v_s"))
+    if "local_k" in caches:
+        ng, ge, _ = windowed_layout(cfg)
+        g, j = divmod(i, ge)
+        if g == ng:
+            t = i - ng * ge
+            return "ring", (caches["tail_k"][t], caches["tail_v"][t])
+        if j < ge - 1:
+            return "ring", (caches["local_k"][g, j], caches["local_v"][g, j])
+        return "plain", (caches["global_k"][g], caches["global_v"][g])
+    return "plain", (caches["k"][i], caches["v"][i])
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -229,7 +261,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     steps.  A MoE layer routes each prompt token as a group of its own
     (:func:`repro_torch.models.moe.moe_tokens`), as the replay does, so no
     token is dropped, where ``forward``'s capacity dispatch over groups of
-    up to 512 tokens may drop some.
+    up to 512 tokens may drop some.  The decode cache variants fill as the
+    replay fills them: an int8 cache holds the prompt's quantized K/V and
+    attention reads them dequantized; a windowed layout's local layer
+    attends over its K/V rounded to its ring's dtype and keeps the last W
+    positions in ring slots p mod W.
     """
     _check_supported(cfg)
     x = _embed(params, cfg, tokens, extra_embeddings)
@@ -243,9 +279,16 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for i, ((window, chunk), (is_moe, fp)) in enumerate(
             zip(_layer_masks(cfg), layer_ffns(layers, params, cfg))):
         lp = layers[i]
-        x = x + attn.mha_prefill(lp, rmsnorm(x, lp["norm1"], cfg.norm_eps),
-                                 cfg, caches["k"][i], caches["v"][i],
-                                 window=window, chunk=chunk)
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        kind, c = _layer_cache(caches, cfg, i)
+        if kind == "int8":
+            x = x + attn.mha_prefill_quant(lp, h, cfg, *c, window=window,
+                                           chunk=chunk)
+        elif kind == "ring":
+            x = x + attn.mha_prefill_windowed(lp, h, cfg, *c, window=window)
+        else:
+            x = x + attn.mha_prefill(lp, h, cfg, *c, window=window,
+                                     chunk=chunk)
         x = x + _ffn_tokens(is_moe, fp, rmsnorm(x, lp["norm2"], cfg.norm_eps),
                             cfg)
     return _head(params, cfg, x[:, -1:]), caches
@@ -259,11 +302,28 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
     if cfg.family == "ssm":
         return {"ssm": ssm_lib.init_ssm_cache(cfg, cfg.n_layers, batch,
                                               device=device)}
-    # MoE configs take the plain cache whatever these flags say, as the
-    # reference's init_caches gives them
-    if (cfg.kv_quant or cfg.windowed_cache) and not cfg.n_experts:
-        raise NotImplementedError(
-            "the port has the default bf16 [L,B,C,KH,hd] cache only")
+    if cfg.kv_quant and not cfg.n_experts:
+        # int8 KV: dense/VLM only — MoE top-k routing is discontinuous and
+        # amplifies quantization perturbations into expert flips
+        return attn.init_kv_cache_quant(cfg, cfg.n_layers, batch, context,
+                                        device=device)
+    if (cfg.windowed_cache and cfg.sliding_window and cfg.global_every
+            and not cfg.n_experts):
+        # local layers keep rings of W slots, bf16 whatever the params
+        ng, ge, tail = windowed_layout(cfg)
+        w = min(cfg.sliding_window, context)
+        kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+
+        def ring(*lead):
+            return torch.zeros(lead + (batch, w, kh, hd),
+                               dtype=torch.bfloat16, device=device)
+
+        gk, gv = attn.init_kv_cache(cfg, ng, batch, context, device=device)
+        caches = {"local_k": ring(ng, ge - 1), "local_v": ring(ng, ge - 1),
+                  "global_k": gk, "global_v": gv}
+        if tail:
+            caches["tail_k"], caches["tail_v"] = ring(tail), ring(tail)
+        return caches
     k, v = attn.init_kv_cache(cfg, cfg.n_layers, batch, context,
                               device=device)
     return {"k": k, "v": v}
@@ -289,9 +349,16 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     for i, ((window, chunk), (is_moe, fp)) in enumerate(
             zip(_layer_masks(cfg), layer_ffns(layers, params, cfg))):
         lp = layers[i]
-        out, _, _ = attn.mha_decode(
-            lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), cfg, caches["k"][i],
-            caches["v"][i], index, window=window, chunk=chunk)
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        kind, c = _layer_cache(caches, cfg, i)
+        if kind == "int8":
+            out, _ = attn.mha_decode_quant(lp, h, cfg, *c, index,
+                                           window=window, chunk=chunk)
+        elif kind == "ring":
+            out, _, _ = attn.mha_decode_windowed(lp, h, cfg, *c, index)
+        else:
+            out, _, _ = attn.mha_decode(lp, h, cfg, *c, index, window=window,
+                                        chunk=chunk)
         x = x + out
         x = x + _ffn_tokens(is_moe, fp, rmsnorm(x, lp["norm2"], cfg.norm_eps),
                             cfg)

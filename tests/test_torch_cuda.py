@@ -576,3 +576,97 @@ def test_multi_tenant_flow_on_card_matches_cpu(card):
                            t.tokens) for t in tenants]
     assert runs["cpu"] == runs["cuda"]
     assert [r[0] for r in runs["cuda"]] == [76, 37, 17]
+
+
+def _variant_cfg(flag, dtype):
+    """gemma3's smoke config with a window of 16 and 5 layers (2 groups of
+    a local and a global layer, then a local tail) and ``flag`` set."""
+    cfg = dataclasses.replace(get_smoke_config("gemma3-27b"),
+                              sliding_window=16, n_layers=5,
+                              attn_impl="pallas", **{flag: True})
+    params = cast_tree(registry.init_params(
+        torch.Generator().manual_seed(0), cfg)[0], dtype)
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["windowed_cache", "kv_quant"])
+def test_cache_variant_prefill_and_decode_on_card_match_cpu(card, flag):
+    """f32 weights, prompts of 40 tokens in a context of 64 (every ring
+    wraps): the prefill on the card (each layer's attention on the simt
+    flash kernel, the 3 local layers with their window) and 6 decode
+    steps, against the same calls on the CPU; logits and float cache
+    leaves within 1e-4 of their largest entry (f32 sums in other orders;
+    1e-3 for int8, where such a difference can move a code across a tie,
+    as tests/test_torch_cache_variants.py says), int8 codes at most one
+    apart."""
+    cfg, params = _variant_cfg(flag, torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 40)))
+    tol = 1e-3 if flag == "kv_quant" else 1e-4
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            caches = {k: v if v.dtype == torch.int8 else v.float()
+                      for k, v in registry.init_caches(cfg, 3, 64,
+                                                       dev).items()}
+            before, windowed = _route_counts(), fa.windowed_launches
+            logits, caches = registry.prefill_caches(p, cfg, tokens.to(dev),
+                                                     caches)
+            want = cfg.n_layers if dev == "cuda" else 0
+            assert _moved(before) == {"sm90": 0, "simt": want}
+            assert fa.windowed_launches - windowed == (3 if want else 0)
+            steps = [logits]
+            nxt = logits[:, -1, :cfg.vocab].argmax(-1)[:, None]
+            for pos in range(40, 46):
+                lg, caches = registry.decode_step(p, cfg, nxt, pos, caches)
+                steps.append(lg)
+                nxt = lg[:, -1, :cfg.vocab].argmax(-1)[:, None]
+            out[dev] = {"logits": torch.cat(steps, 1), **caches}
+    for name, ref in out["cpu"].items():
+        got = out["cuda"][name].cpu()
+        if ref.dtype == torch.int8:
+            assert int((got.int() - ref.int()).abs().max()) <= 1, name
+            continue
+        err = (got - ref).abs().max() / ref.abs().max()
+        assert float(err) < tol, (name, float(err))
+
+
+@pytest.mark.cuda
+def test_bf16_cache_variants_fill_as_the_plain_cache_on_sm90(card):
+    """bf16 weights, prompts of 40 tokens in 64: each variant's prefill
+    makes one sm90 flash launch a layer; each local layer's ring slot
+    p mod 16 equals the plain cache's position p bit for bit for p in
+    24..39, each global layer's cache the plain cache's layer; the first
+    layer's int8 K/V (same input as the plain run's) dequantize to within
+    one scale step of the plain cache's."""
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (3, 40))).to(card)
+    caches = {}
+    with torch.inference_mode():
+        for flag in ("windowed_cache", "kv_quant", None):
+            cfg, params = _variant_cfg(flag or "windowed_cache",
+                                       torch.bfloat16)
+            if flag is None:
+                cfg = dataclasses.replace(cfg, windowed_cache=False)
+            params = tree_map(lambda t: t.to(card), params)
+            c = registry.init_caches(cfg, 3, 64, card)
+            before = _route_counts()
+            registry.prefill_caches(params, cfg, tokens, c)
+            assert _moved(before) == {"sm90": cfg.n_layers, "simt": 0}
+            caches[flag] = c
+    plain, ring, q = caches[None], caches["windowed_cache"], \
+        caches["kv_quant"]
+    pos = torch.arange(24, 40, device=card)
+    for name in ("k", "v"):
+        for g, layer in ((0, 0), (1, 2)):
+            assert torch.equal(ring[f"local_{name}"][g, 0][:, pos % 16],
+                               plain[name][layer][:, pos])
+        assert torch.equal(ring[f"tail_{name}"][0][:, pos % 16],
+                           plain[name][4][:, pos])
+        for g, layer in ((0, 1), (1, 3)):
+            assert torch.equal(ring[f"global_{name}"][g], plain[name][layer])
+        codes, scales = q[f"{name}_q"][0, :, :40], q[f"{name}_s"][0, :, :40]
+        err = (codes.float() * scales - plain[name][0, :, :40].float()).abs()
+        assert bool((err <= scales * (1 + 1e-3)).all())

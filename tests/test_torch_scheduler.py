@@ -322,8 +322,7 @@ def test_runspec_and_kinds_are_the_reference():
         == [(f.name, f.default) for f in dataclasses.fields(ref_api.RunSpec)]
 
 
-@pytest.mark.parametrize("kind,item", [("serving", "16d"), ("fleet", "16c"),
-                                       ("cluster", "16e")])
+@pytest.mark.parametrize("kind,item", [("cluster", "16e")])
 def test_simulate_refuses_the_kinds_not_ported(kind, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         api.simulate(api.RunSpec(kind=kind))

@@ -334,8 +334,8 @@ def test_unported_families_raise():
     """The MoE family is ported: both MoE smoke configs, built from the
     reference's fields, take the plain [L,B,C,KH,hd] caches, also with
     kv_quant or windowed_cache set, as the reference gives them.  The
-    decode cache variants are not ported yet: a dense config that asks for
-    the int8 or the windowed ring cache still raises."""
+    decode cache variants are ported too: a dense config that asks for the
+    int8 or the windowed ring cache gets the reference's cache tree."""
     from repro_torch.configs import ModelConfig
     for arch in ("grok-1-314b", "llama4-maverick-400b-a17b"):
         cfg = ModelConfig(**dataclasses.asdict(ref_get_smoke_config(arch)))
@@ -348,8 +348,14 @@ def test_unported_families_raise():
     dense = ModelConfig(**dataclasses.asdict(
         ref_get_smoke_config("gemma3-27b")))
     for flags in ({"kv_quant": True}, {"windowed_cache": True}):
-        with pytest.raises(NotImplementedError, match="cache only"):
-            registry.init_caches(dataclasses.replace(dense, **flags), 1, 8)
+        caches = registry.init_caches(dataclasses.replace(dense, **flags), 1,
+                                      8)
+        want = ref_registry.init_caches(dataclasses.replace(
+            ref_get_smoke_config("gemma3-27b"), **flags), 1, 8)
+        assert caches.keys() == want.keys()
+        for name, leaf in want.items():
+            assert tuple(caches[name].shape) == leaf.shape, name
+            assert str(caches[name].dtype) == f"torch.{leaf.dtype.name}"
 
 
 # -- serving -----------------------------------------------------------------------
