@@ -129,7 +129,28 @@ Phases, each raising on failure (the script then exits non-zero):
    dynamic / dynamic+pred, 300 Poisson requests at 2.0/s) and
    launch/fleet_sim.py (bench_fleet.py: 3 fleet shapes x 4 routers), each
    with its checks, on the host; no kernel launch; every figure is the
-   simulator's, only the seconds are the machine's.
+   simulator's, only the seconds are the machine's;
+9. cluster and control plane, on the host: launch/cluster_sim.py (the
+   reference's bench_cluster.py: 3 zones x [2xA100+1xH100], 40 jobs each,
+   its check that follow-the-sun saves dollars at 99% of single-zone
+   throughput) and the reference example's arms with the under-estimated
+   whale (one cross-zone Migrate under price_greedy and follow_the_sun,
+   none under single_zone); then the control CLI in-process on a fresh
+   ledger of one H100 (leases a at 10 GB -> 1g.10gb, b at 20 GB with
+   compute 0.4 -> 3g.40gb, status, heartbeat, tick to 70 s: both expire,
+   the FSM empties), the plane rebuilt from the ledger equal to a live
+   one (compared on the parsed FSM state), and one ``python -m
+   repro_torch.control`` process printing the same status; no kernel
+   launch, every figure the simulator's;
+10. quickstart: launch/quickstart.py with its defaults on the card (the
+   qwen3-0.6b smoke config trained 200 steps at batch 8, seq 128; its
+   checkpoint saved and restored bit for bit; two greedy requests of 12
+   tokens served from the trained weights), the loss falling, no kernel
+   launch, its seconds and allocator peak.
+
+Phases 4 to 4g and 6a print the reference's static footprint estimate
+(core/memory/static_estimator.py) for the config they run beside the
+card's peaks, and the ratio estimate / allocator, with no limit.
 
 Each phase prints its host seconds as it ends.  The script prints a JSON
 line of kernel results, the card line, and last ``{"ok": true, "device":
@@ -1633,6 +1654,7 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     its own before the decoder's prefill.  ``run`` names the run in the
     kernels line (default the arch); the stats returned carry the
     generated tokens under ``generated`` (not printed)."""
+    from repro_torch.core.memory.static_estimator import estimate_serve
     from repro_torch.core.mig_h100 import MigH100Backend
     from repro_torch.models import registry
     from repro_torch.serving.engine import EngineConfig, ServeEngine
@@ -1697,14 +1719,31 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
         "tokens_per_s": n_tok / run_s,
         "accountant_peak_in_use_gb": engine.accountant.peak_in_use / 2**30,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "static_estimate_gb": estimate_serve(cfg, N_REQ, context).total_gb,
         "launches": launches, "launches_by_route": routes,
         "flash_windowed_launches": windowed,
         **checks,
     }
+    print_estimate(f"{stats['run']} serving (batch {N_REQ}, context "
+                   f"{context})", stats["static_estimate_gb"],
+                   stats["max_memory_allocated_gb"],
+                   stats["accountant_peak_in_use_gb"])
     print(f"[serving] {json.dumps(stats)}", flush=True)
     print(f"[serving] req 0: {out[0].generated[:16]}", flush=True)
     stats["generated"] = [list(r.generated) for r in out]
     return stats
+
+
+def print_estimate(what, estimate_gib, allocator_gib, accountant_gib=None):
+    """The reference's static footprint estimate (the paper's tier for a
+    job's starting slice) beside the card's peaks, with no limit: a
+    measurement of the estimator, which leaves out some of what the card
+    holds and over-counts some configs (see PERF.md)."""
+    accountant = ("" if accountant_gib is None
+                  else f", accountant peak {accountant_gib:.3f} GiB")
+    print(f"[estimate] {what}: static estimate {estimate_gib:.3f} GiB, "
+          f"allocator peak {allocator_gib:.3f} GiB{accountant}; estimate / "
+          f"allocator {estimate_gib / allocator_gib:.3f}", flush=True)
 
 
 def phase_smoke_tokens(torch, arch, impl_fields) -> None:
@@ -1869,20 +1908,15 @@ PARITY_STEPS, PARITY_BATCH, PARITY_SEQ, PARITY_REL = 3, 2, 64, 1e-4
 ZAMBA2_QK_SCALE = 0.1
 
 
-def same_bits(torch, a, b) -> bool:
-    with torch.no_grad():
-        return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
-
-
 def phase_train(torch, counters) -> dict:
     """6a: qwen3-0.6b at full width through make_train_step, the kernels'
     launch counts set to 0 just before and read just after; then a save
     and load of the final state through training/checkpoint.py."""
     from repro_torch.configs import get_config
+    from repro_torch.core.memory.static_estimator import estimate_train
     from repro_torch.models.module import param_count, tree_leaves
     from repro_torch.training.checkpoint import (flatten, load_checkpoint,
-                                                 save_checkpoint)
+                                                 same_bits, save_checkpoint)
     from repro_torch.training.data import DataConfig, SyntheticLM
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import (init_train_state,
@@ -1941,6 +1975,8 @@ def phase_train(torch, counters) -> dict:
                          / (sum(r["ms"] for r in timed) / 1e3)),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
         / 2**30,
+        "static_estimate_gib": estimate_train(cfg, TRAIN_BATCH,
+                                              TRAIN_SEQ).total_gb,
         "launches": launches,
     }
     print(f"[train] {cfg.name}: {stats['params']} params, tokens/s over "
@@ -1948,6 +1984,9 @@ def phase_train(torch, counters) -> dict:
           f"{stats['tokens_per_s']:.1f}, max_memory_allocated "
           f"{stats['max_memory_allocated_gib']:.3f} GiB, kernel launches "
           f"{launches}", flush=True)
+    print_estimate(f"{cfg.name} training (batch {TRAIN_BATCH}, seq "
+                   f"{TRAIN_SEQ})", stats["static_estimate_gib"],
+                   stats["max_memory_allocated_gib"])
 
     path = ROOT / "build" / "chip_smoke" / "train_state.npz"
     t0 = time.perf_counter()
@@ -1959,7 +1998,7 @@ def phase_train(torch, counters) -> dict:
             f.unlink(missing_ok=True)
     want, got = flatten(state), flatten(loaded)
     if sorted(want) != sorted(got) or not all(
-            same_bits(torch, want[k], got[k]) for k in want):
+            same_bits(want[k], got[k]) for k in want):
         raise AssertionError("checkpoint save/load is not bitwise")
     stats["checkpoint_s"] = time.perf_counter() - t0
     print(f"[train] checkpoint of the final state ({len(want)} arrays) "
@@ -2366,6 +2405,158 @@ def phase_host_sims(counters) -> dict:
     return {"seconds": seconds}
 
 
+#: phase 9: the control CLI's ops, as an operator would type them on a
+#: fresh ledger of one H100, and the profiles the two provisions must get
+CONTROL_ARGV = [
+    ["--devices", "h100", "provision", "--name", "a", "--mem-gb", "10"],
+    ["provision", "--name", "b", "--mem-gb", "20", "--compute", "0.4"],
+    ["status", "--json"],
+    ["heartbeat", "--name", "a"],
+    ["tick", "--t", "70"],
+    ["status", "--json"],
+]
+CONTROL_PROFILES = ["1g.10gb", "3g.40gb"]
+
+
+def parsed_status(status: dict) -> dict:
+    """A control-plane status with each device's FSM state as its sorted
+    elements: the state is rendered as ``str`` of a frozenset, whose
+    order follows the process's hash seed."""
+    import ast
+    status = json.loads(json.dumps(status))
+    for dev in status["devices"]:
+        text = dev["state"]
+        inner = (text[len("frozenset("):-1] if text.startswith("frozenset(")
+                 else text)
+        dev["state"] = sorted(ast.literal_eval(inner or "set()"))
+    return status
+
+
+def phase_cluster_control(counters) -> dict:
+    """9: the cluster layer and the control plane on the host of the
+    card's machine (both model the devices and launch nothing on them).
+    launch/cluster_sim.py's bench table (the reference's
+    bench_cluster.py, 3 zones x 40 jobs, its check raising) and the
+    example's whale arms, where the cost routers must restart the whale in
+    another zone (xzone=1); then the control CLI in-process on a fresh
+    ledger (CONTROL_ARGV), a live ControlPlane applying the same ops, the
+    plane rebuilt from the ledger, and one ``python -m
+    repro_torch.control`` process reading it.  Every dollar, Joule and
+    throughput printed is the simulator's, not the card's; only the
+    seconds are the machine's.  The kernels' launch counts are set to 0
+    before and must stay there."""
+    import io
+    import os
+    import tempfile
+    from repro_torch.control import ControlPlane
+    from repro_torch.control import __main__ as control_cli
+    from repro_torch.launch import cluster_sim
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    seconds = {}
+    t0 = time.perf_counter()
+    rows: list = []
+    bench = cluster_sim.run(rows)
+    whale = cluster_sim.run_whale()
+    seconds["cluster_sim"] = time.perf_counter() - t0
+    xzone = {policy: m.n_cross_zone_migrations for policy, m in whale.items()}
+    print(f"[cluster] bench check holds ({len(rows)} rows); whale arms' "
+          f"cross-zone migrations {xzone}: {whale['follow_the_sun'].migrations}"
+          f" (the simulator's dollars and Joules, not the card's)",
+          flush=True)
+    if xzone != {"single_zone": 0, "price_greedy": 1, "follow_the_sun": 1}:
+        raise AssertionError(f"whale arms: cross-zone migrations {xzone}")
+    if any(m.n_cross_zone_migrations for m in bench.values()):
+        raise AssertionError("the bench's arms migrated across zones")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ledger_path = Path(d) / "plane.json"
+        outs = []
+        for argv in CONTROL_ARGV:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = control_cli.main(["--state", str(ledger_path), *argv])
+            if rc != 0:
+                raise AssertionError(f"control CLI {argv}: exit {rc}")
+            outs.append(buf.getvalue())
+        ledger = json.loads(ledger_path.read_text())
+        profiles = [json.loads(outs[i])["profile"] for i in (0, 1)]
+        before, after = json.loads(outs[2]), json.loads(outs[5])
+        live = ControlPlane(ledger["devices"])
+        for op in ledger["ops"]:
+            live.apply(op)
+        replayed = control_cli.build_plane(ledger)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.control", "--state",
+             str(ledger_path), "status", "--json"], capture_output=True,
+            text=True, env=env, timeout=120)
+    seconds["control"] = time.perf_counter() - t0
+    print(f"[control] leases {profiles} (reach {before['devices'][0]['reach']}"
+          f" with both held); after the tick: counters {after['counters']}, "
+          f"state {parsed_status(after)['devices'][0]['state']}", flush=True)
+    if profiles != CONTROL_PROFILES:
+        raise AssertionError(f"lease profiles {profiles}, want "
+                             f"{CONTROL_PROFILES}")
+    if after["counters"]["expired"] != 2 or \
+            parsed_status(after)["devices"][0]["state"]:
+        raise AssertionError(f"after the tick: {after}")
+    live_status = parsed_status(live.status())
+    if not (parsed_status(replayed.status()) == live_status
+            == parsed_status(after)):
+        raise AssertionError("the plane replayed from the ledger differs "
+                             "from the live one")
+    if proc.returncode != 0 or \
+            parsed_status(json.loads(proc.stdout)) != live_status:
+        raise AssertionError(f"python -m repro_torch.control: exit "
+                             f"{proc.returncode}, {proc.stdout!r} "
+                             f"{proc.stderr[-2000:]!r}")
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches in phase 9: {launches}")
+    print(f"[control] replayed plane equals the live one, and the python -m "
+          f"entry prints it; kernel launches {launches}; host seconds "
+          f"{json.dumps(seconds)}", flush=True)
+    return {"seconds": seconds, "xzone": xzone, "profiles": profiles}
+
+
+def phase_quickstart(torch, counters) -> dict:
+    """10: launch/quickstart.py with its defaults on the card (200 steps
+    of the qwen3-0.6b smoke config at batch 8, seq 128, the checkpoint
+    round trip, two greedy requests of 12 tokens), the kernels' launch
+    counts set to 0 just before and read just after (the smoke config's
+    default attn_impl reaches no kernel)."""
+    from repro_torch.launch import quickstart
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = quickstart.main([])      # raises unless the round trip is bitwise
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in counters.items()}
+    losses = run["losses"]
+    first, last = losses[min(losses)], losses[max(losses)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[quickstart] losses {json.dumps(losses)}; tokens "
+          f"{run['generated']}; {run['checkpoint_leaves']} leaves round-"
+          f"tripped bit for bit; {seconds:.2f} s, allocator peak "
+          f"{peak:.3f} GiB; kernel launches {launches}", flush=True)
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"quickstart loss did not fall: {losses}")
+    if [len(g) for g in run["generated"]] != [12, 12]:
+        raise AssertionError(f"quickstart generations {run['generated']}")
+    if any(launches.values()):
+        raise AssertionError(f"quickstart launched kernels: {launches}")
+    return {"seconds": seconds, "losses": losses,
+            "max_memory_allocated_gib": peak}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2509,6 +2700,14 @@ def main() -> int:
     # 8. the serving simulator and the fleet on the host, no kernel
     with clock("8 serving simulator and fleet"):
         phase_host_sims(counters)
+
+    # 9. the cluster layer and the control plane on the host, no kernel
+    with clock("9 cluster and control plane"):
+        phase_cluster_control(counters)
+
+    # 10. the quickstart on the card: train, checkpoint, serve
+    with clock("10 quickstart"):
+        phase_quickstart(torch, counters)
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
     print(json.dumps({"kernels": [*flash, *scan]}), flush=True)

@@ -15,11 +15,6 @@ merely tested.
 Imports are deliberately lazy inside :func:`simulate`: the legacy shims
 live in the modules this facade drives, and a module-level import either
 way would cycle.
-
-The port runs the single-device batch kinds, the serving simulator and
-the fleet.  The kind ``cluster`` drives a module the port has not copied
-yet (ROADMAP item 16e), so it raises ``NotImplementedError`` naming the
-item.
 """
 
 from __future__ import annotations
@@ -29,12 +24,6 @@ from typing import Any, Iterable, Mapping, Sequence
 
 #: RunSpec.kind values simulate() accepts, in documentation order.
 KINDS = ("baseline", "scheme_a", "scheme_b", "serving", "fleet", "cluster")
-
-#: the kinds whose modules the port has not copied yet -> the ROADMAP item
-#: that brings them
-_NOT_PORTED = {
-    "cluster": "the cluster layer (ROADMAP item 16e)",
-}
 
 
 @dataclasses.dataclass
@@ -101,8 +90,7 @@ def simulate(spec: RunSpec):
     tests/test_torch_scheduler.py) dataclass-equal to them, because the
     legacy entrypoints are shims over this function.
 
-    Raises ``ValueError`` for an unknown ``spec.kind`` and
-    ``NotImplementedError`` for a kind whose modules are not ported yet.
+    Raises ``ValueError`` for an unknown ``spec.kind``.
     """
     kind = spec.kind
     if kind == "baseline":
@@ -160,8 +148,15 @@ def simulate(spec: RunSpec):
                              admission=spec.admission)
         return EventKernel(devices, policy,
                            tracer=spec.tracer).run(spec.jobs)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"RunSpec.kind {kind!r} needs {_NOT_PORTED[kind]}, which the "
-            f"port does not have yet")
+    if kind == "cluster":
+        from repro_torch.cluster.orchestrator import ClusterPolicy
+        from repro_torch.core.scheduler.kernel import EventKernel
+        from repro_torch.fleet.devices import WAKE_LATENCY_S
+        zones = list(spec.zones or [])
+        wake = (WAKE_LATENCY_S if spec.wake_latency_s is None
+                else spec.wake_latency_s)
+        policy = ClusterPolicy(zones, spec.router, wake, origin=spec.origin)
+        devices = [d for z in zones for d in z.devices]
+        return EventKernel(devices, policy,
+                           tracer=spec.tracer).run(spec.jobs)
     raise ValueError(f"unknown RunSpec.kind {kind!r}; known: {list(KINDS)}")

@@ -56,6 +56,15 @@ def to_tensor(arr: Any, device: str | torch.device = "cpu",
     return t.to(device)
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bytes (so NaNs and signed zeros count): what
+    a checkpoint round trip must give back."""
+    with torch.no_grad():
+        return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.detach().reshape(-1).view(torch.uint8),
+            b.detach().reshape(-1).view(torch.uint8)))
+
+
 def flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     """Leaves of a nested dict/list/tuple tree by their ``a/b/c`` path."""
     out: dict[str, Any] = {}

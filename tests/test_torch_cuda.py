@@ -670,3 +670,49 @@ def test_bf16_cache_variants_fill_as_the_plain_cache_on_sm90(card):
         codes, scales = q[f"{name}_q"][0, :, :40], q[f"{name}_s"][0, :, :40]
         err = (codes.float() * scales - plain[name][0, :, :40].float()).abs()
         assert bool((err <= scales * (1 + 1e-3)).all())
+
+
+@pytest.mark.cuda
+def test_quickstart_on_card(card):
+    """launch/quickstart.py on the card at a small size: the loss falls,
+    the checkpoint round-trips bit for bit (main raises otherwise), two
+    requests of 12 tokens come back, and at the smoke config's default
+    attn_impl no kernel is launched."""
+    from repro_torch.launch import quickstart
+    before = (fa.launches, ssd.launches)
+    run = quickstart.main(["--steps", "30", "--batch", "2", "--seq", "32"])
+    assert (fa.launches, ssd.launches) == before
+    assert run["losses"][29] < run["losses"][0]
+    assert run["checkpoint_leaves"] > 0
+    assert [len(g) for g in run["generated"]] == [12, 12]
+
+
+@pytest.mark.cuda
+def test_static_estimate_at_qwen3_beside_the_card(card):
+    """estimate_serve for full-width qwen3-0.6b at batch 8 in a context of
+    1024: its KV bytes are the engine's caches on the card, its weight
+    bytes within 0.1% of the drawn weights', and the allocator's peak over
+    ServeEngine.run holds at least those two (the estimate's activation
+    term is the part the card can differ on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.memory.accountant import pytree_nbytes
+    from repro_torch.core.memory.static_estimator import estimate_serve
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.module import param_bytes
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    cfg = get_config("qwen3-0.6b")
+    fp = estimate_serve(cfg, 8, 1024)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params, _ = registry.init_params(gen, cfg)
+    assert abs(param_bytes(params) - fp.params_bytes) <= 1e-3 * fp.params_bytes
+    assert pytree_nbytes(registry.init_caches(cfg, 8, 1024, card)) == \
+        fp.kv_cache_bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ServeEngine(cfg, params, EngineConfig(max_batch=8, max_context=1024,
+                                          predict=False),
+                device=card).run(make_requests(cfg, 8, 128, 8, 0))
+    peak = torch.cuda.max_memory_allocated()
+    assert peak >= fp.params_bytes + fp.kv_cache_bytes
+    print(f"qwen3-0.6b estimate {fp.total_gb:.3f} GiB, allocator peak "
+          f"{peak / 2**30:.3f} GiB")
