@@ -146,7 +146,25 @@ Phases, each raising on failure (the script then exits non-zero):
    qwen3-0.6b smoke config trained 200 steps at batch 8, seq 128; its
    checkpoint saved and restored bit for bit; two greedy requests of 12
    tokens served from the trained weights), the loss falling, no kernel
-   launch, its seconds and allocator peak.
+   launch, its seconds and allocator peak;
+11. dry run and the last launchers, host code, no kernel launch: (a)
+   launch/dryrun.py traces qwen3-0.6b's decode step at phase 4's serving
+   shape (batch 8, context 1024) on a one-card mesh, every tensor on
+   ``meta``; its argument bytes must equal, exactly, the bytes of the
+   params phase 4 allocated on the card plus a fresh init_caches(cfg, 8,
+   1024) on the card plus the token; printed beside phase 4's
+   measurements: the trace's per-device bytes beside the allocator peak,
+   the roofline's memory and compute ms (the H100's datasheet constants)
+   beside the measured decode ms/step, and the same for the prefill at
+   S=512 beside the measured prefill ms, with no limit; (b) ``python -m
+   repro_torch.launch.dryrun --arch qwen3-0.6b --shape decode_32k``, then
+   ``--shape prefill_32k``, each on the 16x16 production mesh of a fake
+   process group, as a user types them, each exiting 0, their roofline
+   rows, collectives and host seconds printed; (c)
+   launch/llm_memory_prediction.py (the crash at iteration 94, the
+   predictor firing at 5, Scheme A's makespans 365.1 s and 159.5 s,
+   2.29x and 1.91x, all the simulator's) and launch/trace_replay.py at
+   100,000 events, its events/s the host's.
 
 Phases 4 to 4g and 6a print the reference's static footprint estimate
 (core/memory/static_estimator.py) for the config they run beside the
@@ -164,6 +182,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2557,6 +2576,102 @@ def phase_quickstart(torch, counters) -> dict:
             "max_memory_allocated_gib": peak}
 
 
+def phase_dryrun(torch, counters, phase4: dict) -> dict:
+    """11: the dry run against phase 4's card figures, the dry-run CLI on
+    the production mesh, and the two host launchers; the kernels' launch
+    counts set to 0 before and read after (none may move)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, llm_memory_prediction, trace_replay
+    from repro_torch.launch.mesh import make_slice_mesh
+    from repro_torch.launch.shapes import ShapePreset
+    from repro_torch.models import registry
+    from repro_torch.models.module import tree_leaves
+
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    out = {}
+
+    # (a) one-card mesh at phase 4's serving shape
+    mesh = make_slice_mesh([0], (1, 1))
+    cfg = get_config(ARCH)
+    rows = {}
+    for kind, preset, measured_ms in (
+            ("decode", ShapePreset("chip_decode", "decode", CONTEXT, N_REQ),
+             phase4["decode_ms_per_step"]),
+            ("prefill", ShapePreset("chip_prefill", "prefill", PROMPT_LEN,
+                                    N_REQ), phase4["prefill_ms"])):
+        res = dryrun.run_combo(ARCH, preset, mesh=mesh)
+        if not res.ok:
+            raise AssertionError(f"dry run {kind}: {res.error}")
+        roof = dryrun.roofline_of(res)
+        rows[kind] = res
+        print(f"[dryrun] {ARCH} {kind} on 1x1 (batch {N_REQ}, "
+              f"{'context' if kind == 'decode' else 'seq'} {preset.seq}): "
+              f"argument {res.argument_bytes} B, per-device "
+              f"{res.per_device_bytes / 2**30:.3f} GiB beside the allocator "
+              f"peak {phase4['max_memory_allocated_gb']:.3f} GiB; roofline "
+              f"memory {roof.memory_s * 1e3:.4f} ms, compute "
+              f"{roof.compute_s * 1e3:.4f} ms ({roof.dominant}) beside the "
+              f"measured {measured_ms:.2f} ms; {res.flops:.6g} FLOPs, "
+              f"{res.n_ops} ops, trace {res.compile_s:.2f} s", flush=True)
+    dist.destroy_process_group()
+    with torch.inference_mode():
+        caches = registry.init_caches(cfg, N_REQ, CONTEXT, "cuda")
+        token = torch.zeros((N_REQ, 1), dtype=torch.int64, device="cuda")
+        card_bytes = phase4["param_bytes"] + sum(
+            t.nbytes for t in tree_leaves(caches)) + token.nbytes
+        del caches, token
+    print(f"[dryrun] decode argument bytes {rows['decode'].argument_bytes}"
+          f" vs the card's {card_bytes} (params {phase4['param_bytes']} + "
+          f"caches + token)", flush=True)
+    if rows["decode"].argument_bytes != card_bytes:
+        raise AssertionError("dry-run argument bytes differ from the card's")
+    out["one_card"] = {k: dataclasses.asdict(v) for k, v in rows.items()}
+
+    # (b) the CLI on the 16x16 production mesh, as a user types it
+    out["cli_s"] = {}
+    for shape in ("decode_32k", "prefill_32k"):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ARCH, "--shape", shape, "--out",
+             str(ROOT / "build" / "chip_smoke" / "dryrun")],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=600)
+        out["cli_s"][shape] = time.perf_counter() - t0
+        for line in res.stdout.splitlines():
+            print(f"[dryrun cli] {line}", flush=True)
+        print(f"[dryrun cli] {shape}: exit {res.returncode}, "
+              f"{out['cli_s'][shape]:.1f} s", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"dryrun {shape}: {res.stderr[-2000:]}")
+
+    # (c) the two launchers
+    t0 = time.perf_counter()
+    run = llm_memory_prediction.run()
+    no_pred, pred = run["no_pred"], run["pred"]
+    got = (run["oom_at"], run["fired"], f"{no_pred.makespan:.1f}",
+           f"{pred.makespan:.1f}", f"{no_pred.makespan / pred.makespan:.2f}",
+           f"{no_pred.energy_j / pred.energy_j:.2f}")
+    print(f"[launchers] llm_memory_prediction: crash {got[0]}, fired {got[1]}"
+          f", makespans {got[2]} / {got[3]} s, {got[4]}x, {got[5]}x "
+          f"(the simulator's); {time.perf_counter() - t0:.2f} s", flush=True)
+    if got != (94, 5, "365.1", "159.5", "2.29", "1.91"):
+        raise AssertionError(f"llm_memory_prediction: {got}")
+    kernel, metrics, seconds = trace_replay.replay(100_000)
+    out["replay_events_per_s"] = kernel.n_events / seconds
+    print(f"[launchers] trace_replay: {kernel.n_jobs_seen} jobs / "
+          f"{kernel.n_events} events in {seconds:.1f} s -> "
+          f"{out['replay_events_per_s']:.0f} events/s on this host; "
+          f"{metrics.summary()}", flush=True)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"phase 11 launched kernels: {launches}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2571,6 +2686,7 @@ def main() -> int:
     from repro_torch.kernels.ops import flash_mha, ssd_mixer
     from repro_torch.kernels.ref import attention_ref, ssd_ref
     from repro_torch.models import registry
+    from repro_torch.models.module import tree_leaves
     from repro_torch.models.ssm import ssd_chunked
 
     # plain versions in full f32 on the card
@@ -2612,6 +2728,8 @@ def main() -> int:
             {"flash_attention": {"sm90": cfg.n_layers, "simt": 0},
              "ssd_scan": {"sm90": 0, "simt": 0}})
         set_launches(flash, serving)
+        phase4 = {**serving, "param_bytes": sum(
+            t.nbytes for t in tree_leaves(params))}
 
     # 5. early restart and regrow (serve prints each restart line)
     with clock("5 restart"):
@@ -2708,6 +2826,11 @@ def main() -> int:
     # 10. the quickstart on the card: train, checkpoint, serve
     with clock("10 quickstart"):
         phase_quickstart(torch, counters)
+
+    # 11. the dry run beside phase 4's card figures, the dry-run CLI on the
+    # production mesh and the last two launchers, no kernel
+    with clock("11 dry run and launchers"):
+        phase_dryrun(torch, counters, phase4)
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
     print(json.dumps({"kernels": [*flash, *scan]}), flush=True)

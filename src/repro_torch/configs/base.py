@@ -81,6 +81,17 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def has_subquadratic_attention(self) -> bool:
+        """True if long-context decode (500k) is admissible."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None or self.attention_chunk is not None
+
     def layer_is_global(self, layer_idx: int) -> bool:
         """Attention-pattern schedule: gemma3 runs 5 local then 1 global."""
         if self.sliding_window is None and self.attention_chunk is None:

@@ -32,6 +32,12 @@ def pytree_nbytes(tree: Any) -> int:
     return 0
 
 
+def spec_nbytes(tree: Any) -> int:
+    """Bytes for a tree of ``meta`` tensors (no allocation): the same sum
+    as :func:`pytree_nbytes`, which reads only shapes and dtypes."""
+    return pytree_nbytes(tree)
+
+
 @dataclasses.dataclass
 class IterationStats:
     iteration: int

@@ -7,8 +7,9 @@ because they do not grow with context; it parses environment knobs (e.g.
 per-layer workspace.  Like the paper we treat it as a constant per
 workload, estimated from the cuBLAS knob or a per-layer walk.  The
 reference's third estimate, ``xla_scratch_bytes``, reads an XLA
-executable's ``memory_analysis()``, which has no PyTorch counterpart; it
-stays with the rest of the XLA compile tooling (ROADMAP item 14).
+executable's ``memory_analysis()``; its counterpart here,
+:func:`scratch_bytes`, reads a step traced on ``meta`` by
+:func:`repro_torch.launch.op_count.analyze`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,15 @@ def parse_cublas_workspace_config(value: str | None = None) -> int:
         size_kib, count = int(m.group(1)), int(m.group(2))
         total += size_kib * 1024 * count
     return total
+
+
+def scratch_bytes(analysis: dict) -> int:
+    """Working set of a traced step above its arguments: the peak of live
+    bytes while it ran less the arguments' bytes (``analysis`` is what
+    :func:`repro_torch.launch.op_count.analyze` returns).  It is the eager
+    path's own working set (outputs live at the peak included), not XLA's
+    buffer assignment."""
+    return int(analysis["peak_bytes"] - analysis["argument_bytes"])
 
 
 def per_layer_workspace_walk(n_layers: int, d_model: int,

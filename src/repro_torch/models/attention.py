@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.module import ParamBuilder
+from repro_torch.sharding.partitioning import constrain, flatten, unflatten
 
 NEG_INF = -2.3819763e38  # close to bf16 min, used by flash implementations
 GLOBAL_WINDOW = 2 ** 30  # 'window' large enough to mean full attention
@@ -51,14 +52,13 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     layer)."""
     d, nh, hd = w.shape
     dtype = torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(dtype), w.reshape(d, nh * hd).to(dtype)
-                        ).unflatten(-1, (nh, hd))
+    return unflatten(torch.matmul(x.to(dtype), flatten(w, 1, 2).to(dtype)),
+                     -1, (nh, hd))
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum('bshk,hkd->bsd') as one matmul."""
-    nh, hd, d = wo.shape
-    return torch.matmul(out.flatten(-2), wo.reshape(nh * hd, d))
+    return torch.matmul(flatten(out, -2, -1), flatten(wo, 0, 1))
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -72,6 +72,9 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads", None))
+    k = constrain(k, ("batch", "seq", "kv_heads", None))
+    v = constrain(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
@@ -96,7 +99,7 @@ def _sdpa(q, k, v, bias, cfg: ModelConfig):
     b_, sq, h, hd = q.shape
     kh = k.shape[2]
     g = h // kh
-    q = q.reshape(b_, sq, kh, g, hd)
+    q = unflatten(q, 2, (kh, g))
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
     scores = scores / math.sqrt(hd)
     if bias.dim() == 2:
@@ -105,7 +108,8 @@ def _sdpa(q, k, v, bias, cfg: ModelConfig):
         scores = scores + bias[:, :, None]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b_, sq, h, hd)
+    return constrain(out.reshape(b_, sq, h, hd),
+                     ("batch", "seq", "heads", None))
 
 
 def _sdpa_qblocked(q, k, v, q_pos, k_pos, window, chunk, causal: bool,
@@ -118,7 +122,7 @@ def _sdpa_qblocked(q, k, v, q_pos, k_pos, window, chunk, causal: bool,
         stop = start + block
         bias = _mask_bias(q_pos[start:stop], k_pos, window, chunk, causal)
         outs.append(_sdpa(q[:, start:stop], k, v, bias, cfg))
-    return torch.cat(outs, dim=1)
+    return constrain(torch.cat(outs, dim=1), ("batch", "seq", "heads", None))
 
 
 def _attend_self(q, k, v, cfg: ModelConfig, pos: torch.Tensor, window,
@@ -154,8 +158,9 @@ def mha_full(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence causal self attention (training / prefill)."""
     q, k, v = _project_qkv(params, x, cfg, positions, rope=not _no_rope(cfg))
     pos = positions[0] if positions.dim() > 1 else positions
-    return _out_proj(_attend_self(q, k, v, cfg, pos, window, chunk),
-                     params["wo"])
+    y = _out_proj(_attend_self(q, k, v, cfg, pos, window, chunk),
+                  params["wo"])
+    return constrain(y, ("batch", "seq", None))
 
 
 def _prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, store,
@@ -244,7 +249,8 @@ def mha_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         valid &= (k_pos // chunk) == (index // chunk)
     bias = torch.where(valid, 0.0, NEG_INF).float()[None, :]
     out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias, cfg)
-    return _out_proj(out, params["wo"]), cache_k, cache_v
+    y = _out_proj(out, params["wo"])
+    return constrain(y, ("batch", "seq", None)), cache_k, cache_v
 
 
 def mha_cross(params: dict, x: torch.Tensor, enc_k: torch.Tensor,
@@ -258,7 +264,7 @@ def mha_cross(params: dict, x: torch.Tensor, enc_k: torch.Tensor,
     q_pos = torch.arange(s, device=x.device)
     k_pos = torch.arange(enc_k.shape[1], device=x.device)
     out = _attend(q, enc_k, enc_v, q_pos, k_pos, None, None, False, cfg)
-    return _out_proj(out, params["wo"])
+    return constrain(_out_proj(out, params["wo"]), ("batch", "seq", None))
 
 
 def cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig
@@ -280,7 +286,7 @@ def mha_bidirectional(params: dict, x: torch.Tensor, cfg: ModelConfig
     q, k, v = _project_qkv(params, x, cfg, positions, rope=False)
     pos = positions[0]
     out = _attend(q, k, v, pos, pos, None, None, False, cfg)
-    return _out_proj(out, params["wo"])
+    return constrain(_out_proj(out, params["wo"]), ("batch", "seq", None))
 
 
 def _no_rope(cfg: ModelConfig) -> bool:
@@ -319,7 +325,8 @@ def mha_decode_windowed(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k_pos = index - (index - j) % w
     bias = torch.where(k_pos >= 0, 0.0, NEG_INF).float()[None, :]
     out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias, cfg)
-    return _out_proj(out, params["wo"]), cache_k, cache_v
+    y = _out_proj(out, params["wo"])
+    return constrain(y, ("batch", "seq", None)), cache_k, cache_v
 
 
 # -- int8-quantized KV cache (decode) -----------------------------------------
@@ -377,4 +384,5 @@ def mha_decode_quant(params: dict, x: torch.Tensor, cfg: ModelConfig,
     k = dequantize_kv(k_q, k_s, q.dtype)
     v = dequantize_kv(v_q, v_s, q.dtype)
     out = _sdpa(q, k, v, bias, cfg)
-    return _out_proj(out, params["wo"]), (k_q, k_s, v_q, v_s)
+    y = _out_proj(out, params["wo"])
+    return constrain(y, ("batch", "seq", None)), (k_q, k_s, v_q, v_s)

@@ -8,6 +8,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import ParamBuilder
+from repro_torch.sharding.partitioning import constrain, index_add
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -75,18 +76,17 @@ class _Lookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
-        ctx.save_for_backward(tokens)
-        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        ctx.save_for_backward(table, tokens)
         return table[tokens]
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        (tokens,) = ctx.saved_tensors
-        acc = torch.zeros(ctx.table_shape, dtype=torch.float32,
-                          device=grad.device)
-        acc.index_add_(0, tokens.reshape(-1),
-                       grad.reshape(-1, grad.shape[-1]).float())
-        return acc.to(ctx.table_dtype), None
+        table, tokens = ctx.saved_tensors
+        # zeros laid out as the table (sharded as it is, as a DTensor)
+        acc = index_add(torch.zeros_like(table, dtype=torch.float32), 0,
+                        tokens.reshape(-1),
+                        grad.reshape(-1, grad.shape[-1]).float())
+        return acc.to(table.dtype), None
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
@@ -105,13 +105,14 @@ def embed_tokens(params: dict, tokens: torch.Tensor,
         # does; a Python scalar keeps the multiply free of a host copy
         scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
         x = x * scale
-    return x
+    return constrain(x, ("batch", "seq", None))
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     table = (params["embedding"].T if cfg.tie_embeddings
              else params["unembed"])
-    return torch.matmul(x, table.to(x.dtype))
+    logits = torch.matmul(x, table.to(x.dtype))
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 # -- Gated MLP ---------------------------------------------------------------------
@@ -129,11 +130,13 @@ def init_mlp(b: ParamBuilder, cfg: ModelConfig, d_ff: int | None = None,
 def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate = torch.matmul(x, params["w_gate"])
     up = torch.matmul(x, params["w_up"])
+    gate = constrain(gate, ("batch", "seq", "ffn"))
     if cfg.act == "swiglu":
         act = F.silu(gate.float()).to(x.dtype)
     else:  # geglu and gelu both gate with tanh-approximated gelu
         act = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
-    return torch.matmul(act * up, params["w_down"])
+    out = torch.matmul(act * up, params["w_down"])
+    return constrain(out, ("batch", "seq", None))
 
 
 # -- Loss --------------------------------------------------------------------------
@@ -146,7 +149,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     as in the reference.  The gold logit is gathered where the reference
     contracts a one-hot (a form it keeps for SPMD partitioning); the sum of
     the one-hot products is that one logit plus exact zeros, so the values
-    agree.
+    agree.  The gather needs whole vocab rows, so vocab-sharded logits (a
+    DTensor in the dry run) are gathered over the vocab first: DTensor's
+    vocab-parallel gather does not run on ``meta`` tensors.
     """
     logits = logits.float()
     pv = logits.shape[-1]
@@ -155,6 +160,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         logits = logits + torch.where(vocab_ids >= vocab, -1e9, 0.0)
     valid = labels >= 0
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    gold = constrain(logits, ("batch", "seq", None)).gather(
+        -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = (logz - gold) * valid
     return nll.sum() / valid.sum().clamp(min=1)

@@ -121,3 +121,10 @@ def param_bytes(params: Any) -> int:
 def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
     return tree_map(
         lambda x: x.to(dtype) if torch.is_floating_point(x) else x, tree)
+
+
+def stack_specs(specs: Any) -> Any:
+    """Prefix every spec in a layer's tree with the stacked 'layers' axis."""
+    if isinstance(specs, dict):
+        return {k: stack_specs(v) for k, v in specs.items()}
+    return ("layers",) + tuple(specs)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import ParamBuilder
+from repro_torch.sharding.partitioning import constrain
 
 MOE_GROUP = 512  # tokens per dispatch group
 
@@ -125,10 +126,13 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig
         combine = combine + gate_vals[..., slot, None, None] * placed
 
     expert_in = torch.einsum("bgtec,bgtd->ebgcd", dispatch.to(x.dtype), xg)
+    expert_in = constrain(expert_in, ("experts", "batch", None, None, None))
     expert_out = _experts_ffn(
         params, expert_in.reshape(e, -1, d)).reshape(e, b_, g, cap, d)
+    expert_out = constrain(expert_out,
+                           ("experts", "batch", None, None, None))
     out = torch.einsum("bgtec,ebgcd->bgtd", combine.to(x.dtype), expert_out)
-    return out.reshape(b_, s, d), aux
+    return constrain(out.reshape(b_, s, d), ("batch", "seq", None)), aux
 
 
 def moe_tokens(params: dict, x: torch.Tensor, cfg: ModelConfig

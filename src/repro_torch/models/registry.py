@@ -74,12 +74,78 @@ def prefill_encoder(params: dict, cfg: ModelConfig, batch: dict,
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                index: int, caches: dict) -> tuple[torch.Tensor, dict]:
+                index: int, caches: dict, capacity_moe: bool = False
+                ) -> tuple[torch.Tensor, dict]:
+    """One decode step; ``capacity_moe`` sends MoE layers through the
+    capacity dispatch (:func:`transformer.decode_step`)."""
     if cfg.family == "audio":
         return encdec.decode_step(params, cfg, token, index, caches)
     if cfg.family == "hybrid":
         return hybrid.decode_step(params, cfg, token, index, caches)
-    return transformer.decode_step(params, cfg, token, index, caches)
+    return transformer.decode_step(params, cfg, token, index, caches,
+                                   capacity_moe=capacity_moe)
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    return cfg.has_subquadratic_attention
+
+
+# -- logical-axis spec trees (read by the dry run to place each tensor) -------
+
+KV_SPEC = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+SSM_CONV_SPEC = ("layers", "batch", None, "ssm_inner")
+SSM_STATE_SPEC = ("layers", "batch", "ssm_inner", None, None)
+
+
+WKV_LOCAL_SPEC = ("layers", "layers2", "batch", "cache_seq", "kv_heads",
+                  "head_dim")
+WKV_TAIL_SPEC = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """Logical axes mirroring :func:`init_caches`' structure."""
+    if cfg.family == "ssm":
+        return {"ssm": {"conv": SSM_CONV_SPEC, "state": SSM_STATE_SPEC}}
+    if cfg.kv_quant and cfg.family in ("dense", "vlm") \
+            and not cfg.n_experts:
+        return {"k_q": KV_SPEC, "k_s": KV_SPEC,
+                "v_q": KV_SPEC, "v_s": KV_SPEC}
+    if (cfg.windowed_cache and cfg.sliding_window and cfg.global_every
+            and not cfg.n_experts and cfg.family not in ("audio", "hybrid")):
+        from repro_torch.models.transformer import windowed_layout
+        _, _, tail = windowed_layout(cfg)
+        out = {"local_k": WKV_LOCAL_SPEC, "local_v": WKV_LOCAL_SPEC,
+               "global_k": KV_SPEC, "global_v": KV_SPEC}
+        if tail:
+            out["tail_k"] = WKV_TAIL_SPEC
+            out["tail_v"] = WKV_TAIL_SPEC
+        return out
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import _group_shape
+        _, remainder = _group_shape(cfg)
+        out = {
+            "ssm": {"conv": SSM_CONV_SPEC, "state": SSM_STATE_SPEC},
+            "attn_k": KV_SPEC, "attn_v": KV_SPEC,
+        }
+        if remainder:
+            out["ssm_tail"] = {"conv": SSM_CONV_SPEC,
+                               "state": SSM_STATE_SPEC}
+        return out
+    if cfg.family == "audio":
+        return {"k": KV_SPEC, "v": KV_SPEC,
+                "cross_k": KV_SPEC, "cross_v": KV_SPEC}
+    return {"k": KV_SPEC, "v": KV_SPEC}
+
+
+def batch_specs(cfg: ModelConfig, with_labels: bool) -> dict:
+    out = {"tokens": ("batch", "seq")}
+    if with_labels:
+        out["labels"] = ("batch", "seq")
+    if cfg.family == "audio":
+        out["frames"] = ("batch", None, None)
+    if cfg.family == "vlm" and cfg.vision_tokens:
+        out["patches"] = ("batch", None, None)
+    return out
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.module import ParamBuilder
+from repro_torch.sharding.partitioning import constrain
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -133,6 +134,7 @@ def _mix(params: dict, x: torch.Tensor, cfg: ModelConfig
     conv = _causal_conv(xbc, params, cfg)
     x_ssm, b_ssm, c_ssm = torch.split(conv, [d_inner, n, n], dim=-1)
     x_heads = x_ssm.reshape(b_, s, h, p)
+    x_heads = constrain(x_heads, ("batch", "seq", "ssm_inner", None))
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     a = -torch.exp(params["A_log"].float())
     if cfg.ssm_impl == "pallas":
@@ -144,7 +146,8 @@ def _mix(params: dict, x: torch.Tensor, cfg: ModelConfig
     y = y.reshape(b_, s, d_inner)
     y = y * F.silu(z.float()).to(y.dtype)
     y = rmsnorm(y, params["norm"], cfg.norm_eps)
-    return torch.matmul(y, params["out_proj"]), xbc, state
+    out = torch.matmul(y, params["out_proj"])
+    return constrain(out, ("batch", "seq", None)), xbc, state
 
 
 def ssm_forward(params: dict, x: torch.Tensor,
@@ -213,4 +216,5 @@ def ssm_decode_step(params: dict, x: torch.Tensor, cache_conv: torch.Tensor,
     y = y.reshape(b_, 1, d_inner).to(x.dtype)
     y = y * F.silu(z.float()).to(y.dtype)
     y = rmsnorm(y, params["norm"], cfg.norm_eps)
-    return torch.matmul(y, params["out_proj"]), cache_conv, state
+    out = torch.matmul(y, params["out_proj"])
+    return constrain(out, ("batch", "seq", None)), cache_conv, state

@@ -330,9 +330,14 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                index: int, caches: dict) -> tuple[torch.Tensor, dict]:
+                index: int, caches: dict, capacity_moe: bool = False
+                ) -> tuple[torch.Tensor, dict]:
     """token: [B,1] int; index: position.  Returns (logits [B,1,V], caches)
-    with the caches updated in place."""
+    with the caches updated in place.  MoE layers route each token as a
+    group of one (:func:`~repro_torch.models.moe.moe_tokens`), or with
+    ``capacity_moe`` through the capacity dispatch of ``forward``
+    (:func:`~repro_torch.models.moe.moe_layer`), the reference's one
+    dispatch, which the dry run traces on ``meta``."""
     _check_supported(cfg)
     x = embed_tokens(params, token, cfg)
     layers = layer_views(params["layers"])
@@ -360,6 +365,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             out, _, _ = attn.mha_decode(lp, h, cfg, *c, index, window=window,
                                         chunk=chunk)
         x = x + out
-        x = x + _ffn_tokens(is_moe, fp, rmsnorm(x, lp["norm2"], cfg.norm_eps),
-                            cfg)
+        hn = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        if is_moe and capacity_moe:
+            x = x + moe_lib.moe_layer(fp, hn, cfg)[0]
+        else:
+            x = x + _ffn_tokens(is_moe, fp, hn, cfg)
     return _head(params, cfg, x), caches

@@ -76,3 +76,13 @@ class SyntheticLM:
             if self.cfg.family == "vlm" and self.cfg.vision_tokens:
                 batch["patches"] = self._stub(self.cfg.vision_tokens)
             yield batch
+
+
+def shard_batch(batch: dict, mesh, specs) -> dict:
+    """Each tensor of ``batch`` as a DTensor on ``mesh``, placed by its
+    entry of ``specs`` (a dict of per-key placements, or one placement
+    list for every key), as the reference's ``device_put`` with a
+    sharding per key."""
+    from torch.distributed.tensor import distribute_tensor
+    return {k: distribute_tensor(v, mesh, specs[k] if isinstance(specs, dict)
+                                 else specs) for k, v in batch.items()}

@@ -3,8 +3,10 @@ top-level names of ``repro_torch`` (``__all__`` and the deprecated
 aliases) and the own copies of the cluster layer, the control plane, the
 static memory tier and the ``api`` facade, each equal to its reference
 module's syntax tree once docstrings are stripped, but for import paths,
-the CLI's ``prog=`` and the one function left out
-(``workspace.xla_scratch_bytes``, XLA compile tooling)."""
+the CLI's ``prog=``, the one function left out
+(``workspace.xla_scratch_bytes``, which reads an XLA executable) and the
+one put in its place (``workspace.scratch_bytes``); and the sharding rule
+tables and policies, equal to the reference's."""
 
 import ast
 import os
@@ -28,6 +30,8 @@ COPIES = ["api.py", "cluster/__init__.py", "cluster/tariff.py",
           "core/memory/static_estimator.py", "core/memory/workspace.py"]
 #: reference definitions the port leaves out, by module
 LEFT_OUT = {"core/memory/workspace.py": {"xla_scratch_bytes"}}
+#: port definitions that take their place, by module
+ADDED = {"core/memory/workspace.py": {"scratch_bytes"}}
 
 
 class _Normalize(ast.NodeTransformer):
@@ -79,7 +83,8 @@ def _tree(path: Path, reference: bool, left_out=frozenset()) -> str:
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_the_reference_but_for_import_paths(rel):
     left_out = LEFT_OUT.get(rel, frozenset())
-    assert _tree(SRC / "repro_torch" / rel, False) == \
+    assert _tree(SRC / "repro_torch" / rel, False,
+                 ADDED.get(rel, frozenset())) == \
         _tree(SRC / "repro" / rel, True, left_out)
 
 
@@ -148,3 +153,14 @@ def test_host_layers_import_no_torch():
 def test_unknown_name_raises_attribute_error():
     with pytest.raises(AttributeError, match="no attribute 'teleport'"):
         repro_torch.teleport
+
+
+@pytest.mark.parametrize("name", ["PARAM_RULES", "ACT_RULES",
+                                  "AXIS_PRIORITY", "POLICIES",
+                                  "LONG_CONTEXT_OVERRIDES"])
+def test_sharding_rule_tables_are_the_references(name):
+    from repro.sharding import partitioning as ref
+    from repro_torch.sharding import partitioning as port
+    assert getattr(port, name) == getattr(ref, name)
+    for policy in ref.POLICIES:
+        assert port.apply_policy(policy) == ref.apply_policy(policy)
