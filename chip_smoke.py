@@ -23,7 +23,23 @@ Phases, each raising on failure (the script then exits non-zero):
    "simt"), each case's launch counted on the route it must take;
 4. serving: qwen3-0.6b at full width (random bf16 weights from a seed)
    through ServeEngine.run with the prefill on the flash kernel, counting
-   the kernels' launches in that run (28 on "sm90", none on "simt");
+   the kernels' launches in that run (28 on "sm90", none on "simt"); the
+   engine's decode replays one captured CUDA graph of the step
+   (serving/decode_graph.py), which launches neither kernel.  Every
+   serving phase (4 to 4g) also runs, in the same call, the engine with
+   the decode step as it ran before the graph (eager, op by op, the
+   position a Python int, MoE dropless) and checks the graph against it:
+   8 teacher-forced decode steps from one prefill, logits equal bit for
+   bit or held at 2e-2 (MoE on the capacity dispatch on both sides; then
+   capacity against the dropless step, both eager, as drawn with no limit
+   and on wq, wk rescaled to the fan-in d_model at 5e-2 over the requests
+   whose routes never differ); greedy tokens identical for qwen3-0.6b,
+   qwen3-1.7b and gemma3-27b (every cache), counted for the chaotic
+   inits; accountant
+   series identical; then decode ms/step and tokens/s of eager and graph
+   in alternated rounds (eager, graph, graph, eager), the capture's host
+   seconds and both allocator peaks, with the card's name and power limit
+   beside every number;
 5. early restart: the regrow loop of repro_torch.launch.serve on a slice
    smaller than the weights;
 5b. multi-tenant: repro_torch.launch.multi_tenant's flow on phase 4's
@@ -33,7 +49,9 @@ Phases, each raising on failure (the script then exits non-zero):
    (MIG instances are not created); tenant-a and tenant-b decode 24 tokens
    at batch 1 in a context of 256, tenant-c-growing 128 tokens at batch 8
    in a context of 4096, until its predictor flags the lease and it
-   restarts early on 1g.20gb; per tenant the profile and GPC, decode
+   restarts early on 1g.20gb, each run replaying a decode graph captured
+   for it (the restart captures anew), its pool within the lease; per
+   tenant the profile and GPC, decode
    ms/step and the allocator's peak beside the lease, for the growing one
    the restart step and predicted peak; no kernel launches, the card's
    FSM empty at the end;
@@ -156,7 +174,12 @@ Phases, each raising on failure (the script then exits non-zero):
    measurements: the trace's per-device bytes beside the allocator peak,
    the roofline's memory and compute ms (the H100's datasheet constants)
    beside the measured decode ms/step, and the same for the prefill at
-   S=512 beside the measured prefill ms, with no limit; (b) ``python -m
+   S=512 beside the measured prefill ms, with no limit; (a2) decode_32k
+   on the 16x16 production mesh, in this process, for gemma3-27b,
+   zamba2-7b and whisper-medium, whose batch and kv heads are both
+   sharded: each must trace on the card machine's torch, its roofline
+   row, collectives and bytes printed and its FLOPs equal to the pinned
+   count (ROADMAP queue 3 fault 3); (b) ``python -m
    repro_torch.launch.dryrun --arch qwen3-0.6b --shape decode_32k``, then
    ``--shape prefill_32k``, each on the 16x16 production mesh of a fake
    process group, as a user types them, each exiting 0, their roofline
@@ -1659,6 +1682,240 @@ def phase_moe(torch, counters, arch, gen) -> dict:
     return serving
 
 
+#: the graph-against-eager checks of every serving phase: teacher-forced
+#: decode steps compared logit by logit, and the decode steps of each timed
+#: round (graph and eager rounds alternated, TIMED_ROUNDS of each)
+GRAPH_CHECK_STEPS = 8
+TIMED_STEPS, TIMED_ROUNDS = 12, 2
+#: the graph's logits against eager decode's where they are not equal bit
+#: for bit: the flash kernel's bf16 limit (TOL).  MoE's capacity dispatch
+#: (the graph's) against the dropless moe_tokens (eager decode's before
+#: the graph) is held at phase 4f's limit, PREFILL_REL_TOL, on phase 4f's
+#: rescaled weights (check_moe_decode)
+GRAPH_LOGITS_REL_TOL = TOL["bfloat16"]
+#: configs whose greedy tokens on the graph must equal the eager loop's:
+#: those with qk-norm; the other random inits are chaotic (ROADMAP queue 3)
+#: and a near-tie may flip a token, so theirs are counted
+GREEDY_EQUAL_ARCHS = ("qwen3-0.6b", "qwen3-1.7b", "gemma3-27b")
+
+
+def plain_decoder(torch, cfg, params, batch, context, capacity_moe=False):
+    """The engine's decode step as it ran before the graph: op by op, the
+    position a Python int, MoE layers dropless (moe_tokens) unless
+    ``capacity_moe``; for an engine's ``decoders`` and for the eager side
+    of the checks."""
+    from repro_torch.models import registry
+    from repro_torch.serving.decode_graph import EagerDecode
+
+    class PlainDecode(EagerDecode):
+        @torch.inference_mode()
+        def step(self, token, index):
+            return registry.decode_step(self.params, self.cfg, token, index,
+                                        self.caches,
+                                        capacity_moe=capacity_moe)[0]
+
+    return PlainDecode(params, cfg, batch, context, "cuda")
+
+
+def eager_engine_run(torch, cfg, params, prompt_len, context) -> dict:
+    """ServeEngine.run with the decode step as it ran before the graph
+    (plain_decoder), on fresh memory: tokens, accountant series, host
+    seconds and allocator peak of the eager baseline."""
+    from repro_torch.core.mig_h100 import MigH100Backend
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+
+    reqs, _ = serving_requests(torch, cfg, prompt_len)
+    engine = ServeEngine(cfg, params,
+                         EngineConfig(max_batch=N_REQ, max_context=context,
+                                      predict=False),
+                         backend=MigH100Backend(), device="cuda")
+    engine.decoders[(N_REQ, context)] = plain_decoder(torch, cfg, params,
+                                                      N_REQ, context)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    return {"run_s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "tokens": [list(r.generated) for r in out],
+            "series": engine.accountant.series()}
+
+
+def decode_rounds(torch, cfg, decoder, tok, first_pos) -> float:
+    """Host ms a decode step over TIMED_STEPS greedy steps as the engine
+    takes them (the step, the argmax, the tokens' copy to the host)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i in range(TIMED_STEPS):
+            logits = decoder.step(tok, first_pos + i)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+            tok.cpu()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+
+
+def check_moe_decode(torch, cfg, params, tokens, feed, context) -> dict:
+    """MoE decode: the capacity dispatch (the graph's) against the
+    dropless moe_tokens (eager decode's before the graph), both eager and
+    teacher-forced on ``feed`` from one prefill, each side's routes
+    recorded; as drawn (no limit: without qk-norm the random init is
+    chaotic, see check_moe_prefill) and on wq and wk rescaled to the
+    fan-in d_model, held there at PREFILL_REL_TOL over the requests whose
+    routes never differ between the two (a route flips at a near tie and
+    moves its own token's logits by O(1))."""
+    from repro_torch.models import moe, registry
+    from repro_torch.models.module import tree_leaves
+    layers = params["layers"]
+    scaled = {**params, "layers": {
+        **layers, "wq": layers["wq"] * math.sqrt(cfg.n_heads / cfg.d_model),
+        "wk": layers["wk"] * math.sqrt(cfg.n_kv_heads / cfg.d_model)}}
+    s, out = tokens.shape[1], {}
+    for fan_in, p in (("as_drawn", params), ("d_model", scaled)):
+        sides = {name: plain_decoder(torch, cfg, p, N_REQ, context,
+                                     capacity_moe=name == "capacity")
+                 for name in ("capacity", "dropless")}
+        logits = {name: [] for name in sides}
+        routes = {name: [] for name in sides}
+        with torch.inference_mode():
+            registry.prefill_caches(p, cfg, tokens, sides["capacity"].caches)
+            for mine, theirs in zip(tree_leaves(sides["dropless"].caches),
+                                    tree_leaves(sides["capacity"].caches)):
+                mine.copy_(theirs)
+            for i in range(feed.shape[1]):
+                for name, dec in sides.items():
+                    with recorded_routes(moe) as calls:
+                        logits[name].append(
+                            dec.step(feed[:, i:i + 1], s + i).float())
+                    routes[name].append(torch.stack(
+                        [c.sort(-1).values for c in calls]))
+        flipped = torch.zeros(N_REQ, dtype=torch.bool, device="cuda")
+        for a, b in zip(routes["capacity"], routes["dropless"]):
+            flipped |= (a != b).any(-1).any(0)
+        kept = ~flipped
+        rels = [rel_err(c[kept], d[kept]) for c, d in
+                zip(logits["capacity"], logits["dropless"])] \
+            if bool(kept.any()) else []
+        held = p is scaled
+        key = f"moe_decode_qk_fan_in_{fan_in}"
+        out[f"{key}_requests_with_a_route_flip"] = int(flipped.sum())
+        out[f"{key}_capacity_vs_dropless_rel_err"] = rels
+        print(f"[graph] {cfg.name} decode, wq and wk "
+              f"{'at fan-in d_model' if held else 'as drawn'}, capacity vs "
+              f"dropless, {feed.shape[1]} teacher-forced steps: "
+              f"{int(flipped.sum())} of {N_REQ} requests with a route flip; "
+              f"rel err over the others "
+              f"{', '.join(f'{r:.3e}' for r in rels)} "
+              f"({f'tol {PREFILL_REL_TOL}' if held else 'no limit'})",
+              flush=True)
+        if held and not (rels and max(rels) < PREFILL_REL_TOL):
+            raise AssertionError(f"{cfg.name}: capacity vs dropless decode "
+                                 f"{rels}")
+        del sides
+    return out
+
+
+def check_graph_decode(torch, cfg, params, tokens, engine, generated,
+                       eager, context) -> dict:
+    """The engine's captured decode step against the eager one in this
+    call: GRAPH_CHECK_STEPS teacher-forced steps fed the graph run's
+    tokens from one prefill against the same step eager (MoE on the
+    capacity dispatch, as the graph; bit equality expected, else held at
+    GRAPH_LOGITS_REL_TOL), for MoE check_moe_decode, greedy tokens and
+    accountant series against the eager engine run ``eager``
+    (eager_engine_run: the step as the engine ran it before the graph),
+    then decode ms/step of the graph and of that eager step in alternated
+    rounds, with the capture's seconds and both allocator peaks, the card
+    beside every number."""
+    from repro_torch.models import registry
+    from repro_torch.models.module import tree_leaves
+
+    card = card_line()
+    graph = engine.decoders[(N_REQ, context)]
+    s = tokens.shape[1]
+    with torch.inference_mode():
+        graph.reset()
+        if cfg.family == "audio":
+            frames = torch.zeros((N_REQ, cfg.enc_seq, cfg.d_model),
+                                 dtype=torch.bfloat16, device="cuda")
+            registry.prefill_encoder(params, cfg, {"frames": frames},
+                                     graph.caches)
+        logits, _ = registry.prefill_caches(params, cfg, tokens, graph.caches)
+        exact = plain_decoder(torch, cfg, params, N_REQ, context,
+                              capacity_moe=bool(cfg.n_experts))
+        for mine, theirs in zip(tree_leaves(exact.caches),
+                                tree_leaves(graph.caches)):
+            mine.copy_(theirs)
+        feed = torch.tensor([g[:GRAPH_CHECK_STEPS - 1] for g in generated],
+                            dtype=torch.int64, device="cuda")
+        feed = torch.cat([torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)
+                          [:, None], feed], dim=1)
+        diffs, rels = [], []
+        for i in range(GRAPH_CHECK_STEPS):
+            g = graph.step(feed[:, i:i + 1], s + i).float()
+            e = exact.step(feed[:, i:i + 1], s + i).float()
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{cfg.name}: non-finite graph logits")
+            diffs.append(float((g - e).abs().max()))
+            rels.append(rel_err(g, e))
+    what = "graph vs eager" + (", both on the capacity dispatch"
+                               if cfg.n_experts else "")
+    print(f"[graph] {cfg.name}: {what}, {GRAPH_CHECK_STEPS} teacher-forced "
+          f"decode steps: max abs diff {', '.join(f'{d:.3g}' for d in diffs)}"
+          f"; rel {max(rels):.3e}"
+          + ("" if max(diffs) == 0.0 else
+             f" (not bit-equal; tol {GRAPH_LOGITS_REL_TOL})")
+          + f" [{card}]", flush=True)
+    if not max(rels) <= GRAPH_LOGITS_REL_TOL:
+        raise AssertionError(f"{cfg.name}: graph logits {rels} vs eager")
+    moe_checks = (check_moe_decode(torch, cfg, params, tokens, feed, context)
+                  if cfg.n_experts else {})
+    base = exact
+    if cfg.n_experts:       # the eager step timed is the dropless one
+        base = plain_decoder(torch, cfg, params, N_REQ, context)
+        with torch.inference_mode():
+            for mine, theirs in zip(tree_leaves(base.caches),
+                                    tree_leaves(exact.caches)):
+                mine.copy_(theirs)
+
+    graph_tokens = [list(g) for g in generated]
+    n_equal = sum(a == b for g, e in zip(graph_tokens, eager["tokens"])
+                  for a, b in zip(g, e))
+    n_all = sum(map(len, graph_tokens))
+    print(f"[graph] {cfg.name}: greedy tokens equal to the eager loop's: "
+          f"{n_equal} of {n_all}", flush=True)
+    if cfg.name in GREEDY_EQUAL_ARCHS and graph_tokens != eager["tokens"]:
+        raise AssertionError(f"{cfg.name}: graph tokens differ from eager's")
+    series_equal = all(np.array_equal(a, b) for a, b in
+                       zip(engine.accountant.series(), eager["series"]))
+    if not series_equal:
+        raise AssertionError(f"{cfg.name}: accountant series differ")
+
+    # decode ms/step, eager and graph in turns: eager, graph, graph, eager
+    first, tok = s + GRAPH_CHECK_STEPS, feed[:, -1:]
+    ms = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager") * (TIMED_ROUNDS // 2):
+        ms[name].append(decode_rounds(torch, cfg, base if name == "eager"
+                                      else graph, tok, first))
+    del base, exact
+    out = {"graph_decode_ms": ms["graph"], "eager_decode_ms": ms["eager"],
+           "capture_s": graph.capture_s, "eager_peak_gb": eager["peak_gb"],
+           "eager_run_s": eager["run_s"],
+           "graph_vs_eager_max_abs_diff": diffs,
+           "graph_vs_eager_rel_err": rels, "greedy_equal": n_equal,
+           "series_equal": series_equal, **moe_checks}
+    for name in ("eager", "graph"):
+        print(f"[graph] {cfg.name} decode, {name}: "
+              f"{', '.join(f'{m:.3f}' for m in ms[name])} ms/step, "
+              f"{', '.join(f'{N_REQ * 1e3 / m:.1f}' for m in ms[name])} "
+              f"tokens/s [{card}]", flush=True)
+    print(f"[graph] {cfg.name}: capture {graph.capture_s:.3f} s (host); "
+          f"eager engine run {eager['run_s']:.2f} s, allocator peak "
+          f"{eager['peak_gb']:.3f} GiB eager [{card}]", flush=True)
+    return out
+
+
 def phase_serving(torch, counters, cfg, params, check_prefill,
                   want_launches, want_routes, prompt_len=PROMPT_LEN,
                   context=CONTEXT, want_windowed=0, run=None) -> dict:
@@ -1680,6 +1937,7 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
 
     reqs, tokens = serving_requests(torch, cfg, prompt_len)
     checks = check_prefill(torch, cfg, params, tokens)
+    eager = eager_engine_run(torch, cfg, params, prompt_len, context)
     timings = {}
     with torch.inference_mode():
         caches = registry.init_caches(cfg, N_REQ, context, "cuda")
@@ -1728,20 +1986,23 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
         raise AssertionError(f"bad generations: {n_tok} tokens")
     if len(engine.accountant.history) != 1 + MAX_NEW:
         raise AssertionError("accountant missed iterations")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    graph = check_graph_decode(torch, cfg, params, tokens, engine,
+                               [r.generated for r in out], eager, context)
+    decode_ms = float(np.mean(graph["graph_decode_ms"]))
     stats = {
         "arch": cfg.name, "run": run or cfg.name, "requests": N_REQ,
         "prompt_len": prompt_len,
         "new_tokens": MAX_NEW, "max_context": context, **timings,
         "run_s": run_s,
-        "decode_ms_per_step": (run_s * 1e3 - sum(timings.values()))
-        / MAX_NEW,
-        "tokens_per_s": n_tok / run_s,
+        "decode_ms_per_step": decode_ms,
+        "tokens_per_s": N_REQ * 1e3 / decode_ms,
         "accountant_peak_in_use_gb": engine.accountant.peak_in_use / 2**30,
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "max_memory_allocated_gb": peak_gb,
         "static_estimate_gb": estimate_serve(cfg, N_REQ, context).total_gb,
         "launches": launches, "launches_by_route": routes,
         "flash_windowed_launches": windowed,
-        **checks,
+        **graph, **checks,
     }
     print_estimate(f"{stats['run']} serving (batch {N_REQ}, context "
                    f"{context})", stats["static_estimate_gb"],
@@ -2576,6 +2837,13 @@ def phase_quickstart(torch, counters) -> dict:
             "max_memory_allocated_gib": peak}
 
 
+#: phase 11(a2): per-device FLOPs of decode_32k on the 16x16 mesh, where
+#: the einsums of attention._sdpa meet batch and kv heads both sharded, as
+#: tests/test_torch_dryrun.py pins them
+DECODE_32K_FLOPS = {"gemma3-27b": 43650646016.0, "zamba2-7b": 12189442048.0,
+                    "whisper-medium": 2190540800.0}
+
+
 def phase_dryrun(torch, counters, phase4: dict) -> dict:
     """11: the dry run against phase 4's card figures, the dry-run CLI on
     the production mesh, and the two host launchers; the kernels' launch
@@ -2617,6 +2885,26 @@ def phase_dryrun(torch, counters, phase4: dict) -> dict:
               f"measured {measured_ms:.2f} ms; {res.flops:.6g} FLOPs, "
               f"{res.n_ops} ops, trace {res.compile_s:.2f} s", flush=True)
     dist.destroy_process_group()
+
+    # (a2) decode_32k on the 16x16 production mesh where batch and kv heads
+    # are both sharded (ROADMAP queue 3, fault 3), in this process
+    out["decode_32k"] = {}
+    for arch, flops in DECODE_32K_FLOPS.items():
+        res = dryrun.run_combo(arch, "decode_32k")
+        if not res.ok:
+            raise AssertionError(f"dry run {arch} decode_32k: {res.error}")
+        print(f"[dryrun] {dryrun.roofline_of(res).row()}  [{res.compile_s:.1f}"
+              f"s trace, {res.per_device_bytes / 2**30:.2f} GiB/dev, "
+              f"torch {torch.__version__}]", flush=True)
+        print(f"[dryrun]       {dryrun.collectives_line(res.collectives)}; "
+              f"argument {res.argument_bytes} B, temp {res.temp_bytes} B",
+              flush=True)
+        if res.flops != flops:
+            raise AssertionError(f"{arch} decode_32k: {res.flops} FLOPs, "
+                                 f"pinned {flops}")
+        out["decode_32k"][arch] = dataclasses.asdict(res)
+    dist.destroy_process_group()
+
     with torch.inference_mode():
         caches = registry.init_caches(cfg, N_REQ, CONTEXT, "cuda")
         token = torch.zeros((N_REQ, 1), dtype=torch.int64, device="cuda")

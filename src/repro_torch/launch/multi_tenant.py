@@ -33,7 +33,8 @@ runs every tenant at batch 1 in a context of 256; at full width that
 tenant would peak near 1.6 GiB, far below a 10 GB slice, so the full-width
 growing tenant runs a larger batch and context (:data:`GROWING`).  Like the
 reference, this path only decodes, so it reaches no kernel of
-:mod:`repro_torch.kernels`.
+:mod:`repro_torch.kernels`; on the card each run replays a decode step
+captured for it, as the reference jits its step once per slice.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from repro_torch.core.partition_state import PartitionProfile
 from repro_torch.core.restart import NeedsLargerPartition
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.serving.decode_graph import decoder_for
 
 ARCH = "qwen3-0.6b"
 
@@ -97,19 +99,22 @@ def run_job_on_slice(job: TenantJob, cfg: ModelConfig, params: dict,
                      predictor=None) -> list[int]:
     """Run a greedy decode loop on ``device``; returns the first request's
     tokens or raises NeedsLargerPartition when the predictor flags the
-    growth against ``partition_gb``."""
-    caches = registry.init_caches(cfg, batch=job.batch, context=job.context,
-                                  device=device)
+    growth against ``partition_gb``.  On the card the loop replays a decode
+    step captured for this run (:func:`decoder_for`), so a restart on a new
+    slice captures anew, as the reference re-jits on its new slice; the
+    graph's memory pool counts against the lease."""
+    decoder = decoder_for(params, cfg, job.batch, job.context, device)
     acc = MemoryAccountant()
     tok = torch.zeros((job.batch, 1), dtype=torch.long, device=device)
     out = []
     params_b = pytree_nbytes(params)
+    cache_b = pytree_nbytes(decoder.caches)
     with torch.inference_mode():
         for i in range(job.n_tokens):
-            logits, caches = registry.decode_step(params, cfg, tok, i, caches)
+            logits = decoder.step(tok, i)
             tok = torch.argmax(logits[:, :, :cfg.vocab], dim=-1)
             out.append(int(tok[0, 0]))
-            live = live_bytes(job, i, params_b, pytree_nbytes(caches))
+            live = live_bytes(job, i, params_b, cache_b)
             acc.note_alloc(live * 0.1 + params_b * 0.01)
             acc.note_live(live)
             acc.end_iteration()

@@ -16,9 +16,14 @@ expert counts as published), then
 profiles its windows, each after a warm-up:
 for whisper-medium first the encoder (``registry.prefill_encoder`` over
 zero frames, as the engine runs it); one ``registry.prefill_caches`` over
-the prompt batch (the engine's prefill call); and 16 decode steps as the
-engine takes them (``registry.decode_step``, the greedy argmax and the
-copy of the tokens to the host).  For each window it prints the wall
+the prompt batch (the engine's prefill call); 16 decode steps as the
+engine takes them on the card, each a replay of its captured graph
+(:class:`~repro_torch.serving.decode_graph.DecodeGraph`, on caches the
+same prefill filled), the greedy argmax and the copy of the tokens to the
+host ("decode"); and beside them the same 16 steps run eagerly, op by op,
+as the engine ran them before the graph (``registry.decode_step`` at an
+``int`` position, MoE layers dropless: "decode_eager").  For each window it
+prints the wall
 time, the summed device kernel time, the device's busy share, the kernel
 launches, and the kernels that take the most device time, and how many
 launches were flash, SSD and copy kernels, then one JSON line.  It needs a
@@ -39,6 +44,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS, ONE_CARD_LAYERS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.serving.decode_graph import DecodeGraph
 
 
 def _window(fn, device) -> dict:
@@ -110,21 +116,35 @@ def main() -> None:
         state["logits"], _ = registry.prefill_caches(params, cfg, tokens,
                                                      caches)
 
-    def decode():
+    def decode_loop(step):
         tok = torch.argmax(state["logits"][:, -1, :cfg.vocab], dim=-1)[:, None]
-        for step in range(DECODE_STEPS):
-            logits, _ = registry.decode_step(params, cfg, tok,
-                                             prompt_len + step, caches)
+        for i in range(DECODE_STEPS):
+            logits = step(tok, prompt_len + i)
             tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
             tok.cpu()
 
-    windows = {"prefill": prefill, "decode": decode}
+    def decode():
+        decode_loop(graph.step)
+
+    def decode_eager():
+        decode_loop(lambda tok, pos: registry.decode_step(
+            params, cfg, tok, pos, caches)[0])
+
+    windows = {"prefill": prefill, "decode": decode,
+               "decode_eager": decode_eager}
     if cfg.family == "audio":
         windows = {"encoder": encoder, **windows}
     with torch.inference_mode():
+        graph = DecodeGraph(params, cfg, REQUESTS, max_context, device)
+        if cfg.family == "audio":
+            encoder()
+            for name in ("cross_k", "cross_v"):
+                graph.caches[name].copy_(caches[name])
+        registry.prefill_caches(params, cfg, tokens, graph.caches)
         for fn in windows.values():   # warm-up of every window
             fn()
         out = {"card": torch.cuda.get_device_name(device),
+               "capture_s": graph.capture_s,
                "config": {"arch": cfg.name, "layers": cfg.n_layers,
                           "requests": REQUESTS,
                           "prompt_len": prompt_len,

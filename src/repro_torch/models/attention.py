@@ -24,7 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.module import ParamBuilder
-from repro_torch.sharding.partitioning import constrain, flatten, unflatten
+from repro_torch.sharding.partitioning import (constrain, einsum, flatten,
+                                               unflatten)
 
 NEG_INF = -2.3819763e38  # close to bf16 min, used by flash implementations
 GLOBAL_WINDOW = 2 ** 30  # 'window' large enough to mean full attention
@@ -100,14 +101,14 @@ def _sdpa(q, k, v, bias, cfg: ModelConfig):
     kh = k.shape[2]
     g = h // kh
     q = unflatten(q, 2, (kh, g))
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
+    scores = einsum("bqkgd,bskd->bkgqs", q, k).float()
     scores = scores / math.sqrt(hd)
     if bias.dim() == 2:
         scores = scores + bias[None, None, None]
     else:
         scores = scores + bias[:, :, None]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    out = einsum("bkgqs,bskd->bqkgd", probs, v)
     return constrain(out.reshape(b_, sq, h, hd),
                      ("batch", "seq", "heads", None))
 
@@ -229,25 +230,50 @@ def mha_prefill_quant(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return _prefill(params, x, cfg, store, window, chunk)
 
 
-def mha_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
-               cache_k: torch.Tensor, cache_v: torch.Tensor, index: int,
-               window: int | None = None, chunk: int | None = None):
-    """One-token decode. x:[B,1,d]; cache_k/v:[B,C,KH,hd] (written in
-    place at ``index``); index: current position.
-    Returns (y, cache_k, cache_v)."""
-    positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
-                           device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions,
-                                   rope=not _no_rope(cfg))
-    cache_k[:, index:index + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, index:index + 1] = v_new.to(cache_v.dtype)
-    k_pos = torch.arange(cache_k.shape[1], device=x.device)
+def _decode_positions(index, b: int, device) -> torch.Tensor:
+    """The decode step's positions [B,1] at ``index``: an ``int``, or a
+    0-dim int64 tensor on the step's device, which nothing reads on the
+    host (a captured decode graph replays it at every position)."""
+    if isinstance(index, torch.Tensor):
+        return index.expand(b, 1)
+    return torch.full((b, 1), index, dtype=torch.int64, device=device)
+
+
+def _write_at(cache: torch.Tensor, index, new: torch.Tensor) -> None:
+    """cache[:, index] = new[:, 0] in place, along the sequence dim 1:
+    a slice for an ``int``, ``index_copy_`` for a device tensor."""
+    new = new.to(cache.dtype)
+    if isinstance(index, torch.Tensor):
+        cache.index_copy_(1, index.reshape(1), new)
+    else:
+        cache[:, index:index + 1] = new
+
+
+def _decode_bias(k_pos: torch.Tensor, index, window, chunk) -> torch.Tensor:
+    """The additive bias [1, C] of a decode step at ``index`` over cache
+    positions k_pos, from tensor arithmetic for either kind of index."""
     valid = k_pos <= index
     if window is not None:
         valid &= (index - k_pos) < window
     if chunk is not None:
         valid &= (k_pos // chunk) == (index // chunk)
-    bias = torch.where(valid, 0.0, NEG_INF).float()[None, :]
+    return torch.where(valid, 0.0, NEG_INF).float()[None, :]
+
+
+def mha_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+               cache_k: torch.Tensor, cache_v: torch.Tensor,
+               index: int | torch.Tensor, window: int | None = None,
+               chunk: int | None = None):
+    """One-token decode. x:[B,1,d]; cache_k/v:[B,C,KH,hd] (written in
+    place at ``index``); index: current position, an ``int`` or a 0-dim
+    int64 tensor on x's device.  Returns (y, cache_k, cache_v)."""
+    positions = _decode_positions(index, x.shape[0], x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions,
+                                   rope=not _no_rope(cfg))
+    _write_at(cache_k, index, k_new)
+    _write_at(cache_v, index, v_new)
+    k_pos = torch.arange(cache_k.shape[1], device=x.device)
+    bias = _decode_bias(k_pos, index, window, chunk)
     out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias, cfg)
     y = _out_proj(out, params["wo"])
     return constrain(y, ("batch", "seq", None)), cache_k, cache_v
@@ -305,22 +331,22 @@ def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, context: int,
 
 def mha_decode_windowed(params: dict, x: torch.Tensor, cfg: ModelConfig,
                         cache_k: torch.Tensor, cache_v: torch.Tensor,
-                        index: int):
+                        index: int | torch.Tensor):
     """One-token decode against a ring-buffer cache of ``window`` slots.
 
     cache_k/v: [B, W, KH, hd].  Slot ``index % W`` is overwritten (in
     place); slot j holds absolute position p_j = index - ((index - j) mod
     W), i.e. exactly the last W positions — the sliding window needs no
-    extra mask beyond p_j >= 0 (warmup).
+    extra mask beyond p_j >= 0 (warmup).  ``index`` is an ``int`` or a
+    0-dim int64 tensor on x's device.
     """
     w = cache_k.shape[1]
-    positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
-                           device=x.device)
+    positions = _decode_positions(index, x.shape[0], x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions,
                                    rope=not _no_rope(cfg))
     slot = index % w
-    cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+    _write_at(cache_k, slot, k_new)
+    _write_at(cache_v, slot, v_new)
     j = torch.arange(w, device=x.device)
     k_pos = index - (index - j) % w
     bias = torch.where(k_pos >= 0, 0.0, NEG_INF).float()[None, :]
@@ -359,28 +385,24 @@ def init_kv_cache_quant(cfg: ModelConfig, n_layers: int, batch: int,
 
 
 def mha_decode_quant(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                     k_q, k_s, v_q, v_s, index: int,
+                     k_q, k_s, v_q, v_s, index: int | torch.Tensor,
                      window: int | None = None, chunk: int | None = None):
     """One-token decode against an int8 KV cache (written in place at
-    ``index``).  Returns (y, (k_q, k_s, v_q, v_s)).
+    ``index``, an ``int`` or a 0-dim int64 tensor on x's device).
+    Returns (y, (k_q, k_s, v_q, v_s)).
 
     Halves the decode cache's bytes; per-(token, head) scales keep the
     logit error within bf16 noise (~2% relative in the reference's tests).
     """
-    positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
-                           device=x.device)
+    positions = _decode_positions(index, x.shape[0], x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions,
                                    rope=not _no_rope(cfg))
     for t, codes, scales in ((k_new, k_q, k_s), (v_new, v_q, v_s)):
-        codes[:, index:index + 1], scales[:, index:index + 1] = \
-            quantize_kv(t)
+        new_codes, new_scales = quantize_kv(t)
+        _write_at(codes, index, new_codes)
+        _write_at(scales, index, new_scales)
     k_pos = torch.arange(k_q.shape[1], device=x.device)
-    valid = k_pos <= index
-    if window is not None:
-        valid &= (index - k_pos) < window
-    if chunk is not None:
-        valid &= (k_pos // chunk) == (index // chunk)
-    bias = torch.where(valid, 0.0, NEG_INF).float()[None, :]
+    bias = _decode_bias(k_pos, index, window, chunk)
     k = dequantize_kv(k_q, k_s, q.dtype)
     v = dequantize_kv(v_q, v_s, q.dtype)
     out = _sdpa(q, k, v, bias, cfg)

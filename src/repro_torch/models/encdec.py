@@ -94,10 +94,19 @@ def walk(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-           start: int = 0) -> torch.Tensor:
-    """Token embeddings plus the learned positions start..start+S-1."""
+           start: int | torch.Tensor = 0) -> torch.Tensor:
+    """Token embeddings plus the learned positions start..start+S-1;
+    ``start`` is an ``int`` or a 0-dim int64 tensor on the tokens' device,
+    whose rows come from ``index_select`` (the reference's
+    ``dynamic_slice_in_dim``), so nothing reads it on the host."""
     x = embed_tokens(params, tokens, cfg)
-    return x + params["dec_pos"][start:start + tokens.shape[1]].to(x.dtype)
+    s = tokens.shape[1]
+    if isinstance(start, torch.Tensor):
+        rows = start + torch.arange(s, device=start.device)
+        pos = params["dec_pos"].index_select(0, rows)
+    else:
+        pos = params["dec_pos"][start:start + s]
+    return x + pos.to(x.dtype)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -174,9 +183,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                index: int, caches: dict) -> tuple[torch.Tensor, dict]:
-    """token: [B,1] int; index: position.  Returns (logits [B,1,V], caches)
-    with the self-attention caches updated in place."""
+                index: int | torch.Tensor, caches: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """token: [B,1] int; index: position, an ``int`` or a 0-dim int64
+    tensor on the step's device.  Returns (logits [B,1,V], caches) with the
+    self-attention caches updated in place."""
     x = _embed(params, cfg, token, start=index)
     x = walk(params, cfg, x,
              lambda lp, h, i: attn.mha_decode(lp, h, cfg, caches["k"][i],

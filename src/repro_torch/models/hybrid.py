@@ -157,9 +157,11 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                index: int, caches: dict) -> tuple[torch.Tensor, dict]:
-    """token: [B,1] int; index: position.  Returns (logits [B,1,V], caches)
-    with the caches updated in place."""
+                index: int | torch.Tensor, caches: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """token: [B,1] int; index: position, an ``int`` or a 0-dim int64
+    tensor on the step's device.  Returns (logits [B,1,V], caches) with the
+    caches updated in place."""
     x = embed_tokens(params, token, cfg)
     shared = params["shared_attn"]
 

@@ -10,10 +10,13 @@ Two functions compute it:
   it.
 - :func:`moe_tokens`, what :func:`moe_layer` computes when every token is
   a group of its own (capacity k, so nothing is dropped), grouped by
-  expert: each expert runs over the tokens routed to it.  Decode and the
-  cache-filling prefill use it, as the reference's engine routes each
-  prompt token alone through ``decode_step``.  It never builds the
-  [E, tokens, C, d] dispatch.
+  expert: each expert runs over the tokens routed to it.  The
+  cache-filling prefill uses it, as the reference's engine routes each
+  prompt token alone through ``decode_step``, and so does an eager
+  decode step unless asked for the capacity dispatch.  It never builds
+  the [E, tokens, C, d] dispatch, but it counts each expert's tokens on
+  the host, so a captured decode graph runs :func:`moe_layer` instead,
+  which at S=1 computes the same function.
 
 The expert FFN is SiLU-gated whatever ``cfg.act`` says, as in the
 reference (grok-1's ``act="geglu"`` reaches only its dense MLPs, of which

@@ -74,10 +74,14 @@ def prefill_encoder(params: dict, cfg: ModelConfig, batch: dict,
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                index: int, caches: dict, capacity_moe: bool = False
-                ) -> tuple[torch.Tensor, dict]:
-    """One decode step; ``capacity_moe`` sends MoE layers through the
-    capacity dispatch (:func:`transformer.decode_step`)."""
+                index: int | torch.Tensor, caches: dict,
+                capacity_moe: bool = False) -> tuple[torch.Tensor, dict]:
+    """One decode step at position ``index``, an ``int`` or a 0-dim int64
+    tensor on the step's device (then nothing reads it on the host, and
+    with ``capacity_moe`` the step reads no device value on the host at
+    all, so it can be captured as a CUDA graph); ``capacity_moe`` sends
+    MoE layers through the capacity dispatch
+    (:func:`transformer.decode_step`)."""
     if cfg.family == "audio":
         return encdec.decode_step(params, cfg, token, index, caches)
     if cfg.family == "hybrid":

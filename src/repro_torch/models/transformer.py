@@ -124,8 +124,9 @@ def layer_ffns(layers: list[dict], params: dict, cfg: ModelConfig
 
 def _ffn_tokens(is_moe: bool, fp: dict, x: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
-    """The FFN of decode and the cache-filling prefill: a MoE layer routes
-    every token as a group of one, as the reference's decode_step does."""
+    """The FFN of the cache-filling prefill and of eager decode: a MoE
+    layer routes every token as a group of one, as the reference engine's
+    replay through decode_step does."""
     return moe_lib.moe_tokens(fp, x, cfg) if is_moe else mlp(fp, x, cfg)
 
 
@@ -330,14 +331,17 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                index: int, caches: dict, capacity_moe: bool = False
-                ) -> tuple[torch.Tensor, dict]:
-    """token: [B,1] int; index: position.  Returns (logits [B,1,V], caches)
-    with the caches updated in place.  MoE layers route each token as a
-    group of one (:func:`~repro_torch.models.moe.moe_tokens`), or with
-    ``capacity_moe`` through the capacity dispatch of ``forward``
+                index: int | torch.Tensor, caches: dict,
+                capacity_moe: bool = False) -> tuple[torch.Tensor, dict]:
+    """token: [B,1] int; index: position, an ``int`` or a 0-dim int64
+    tensor on the step's device.  Returns (logits [B,1,V], caches) with
+    the caches updated in place.  MoE layers route each token as a group
+    of one (:func:`~repro_torch.models.moe.moe_tokens`, which counts the
+    tokens of each expert on the host), or with ``capacity_moe`` through
+    the capacity dispatch of ``forward``
     (:func:`~repro_torch.models.moe.moe_layer`), the reference's one
-    dispatch, which the dry run traces on ``meta``."""
+    dispatch, which reads nothing on the host: the dry run traces it on
+    ``meta`` and a captured decode graph replays it."""
     _check_supported(cfg)
     x = embed_tokens(params, token, cfg)
     layers = layer_views(params["layers"])

@@ -11,7 +11,14 @@ reference engine (``repro.serving.engine``); prefill is one forward over
 the prompt batch that fills the caches
 (:func:`repro_torch.models.registry.prefill_caches`), after the encoder
 has filled the cross K/V for the encoder-decoder, from zero frames as in
-the reference.
+the reference.  On the card the decode loop replays one captured CUDA
+graph of the step (:class:`~repro_torch.serving.decode_graph.DecodeGraph`,
+the counterpart of the reference's ``jax.jit`` of ``decode_step``), kept
+per (batch, max_context) and captured at the first run of that shape; the
+prefill runs eagerly into the graph's caches.  On the CPU the same loop
+runs op by op (:class:`~repro_torch.serving.decode_graph.EagerDecode`).
+Either way the position is a device tensor and MoE layers decode through
+the capacity dispatch, the reference's decode dispatch.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from repro_torch.core.restart import NeedsLargerPartition, early_restart_target
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.models.module import tree_leaves
+from repro_torch.serving.decode_graph import EagerDecode, decoder_for
 
 GB = 1024 ** 3
 
@@ -78,6 +86,9 @@ class ServeEngine:
         self.backend = backend
         self._reset_run_state()
         self._params_bytes = pytree_nbytes(params)
+        #: the decode step per (batch, max_context): a captured graph on
+        #: the card, reused (its caches zeroed) by later runs of the shape
+        self.decoders: dict[tuple[int, int], EagerDecode] = {}
 
     def _reset_run_state(self) -> None:
         """Fresh per-run accounting: a second batch on the same engine must
@@ -97,7 +108,8 @@ class ServeEngine:
         self._reset_run_state()
         b = len(requests)
         prompt_len = max(len(r.prompt) for r in requests)
-        caches = registry.init_caches(cfg, b, ecfg.max_context, self.device)
+        decoder = self._decoder(b)
+        caches = decoder.caches
 
         # prefill: one forward over the padded prompt batch fills the cache
         toks = np.zeros((b, prompt_len), np.int64)
@@ -119,8 +131,7 @@ class ServeEngine:
             pos = prompt_len + step
             if pos >= ecfg.max_context:
                 break
-            logits, caches = registry.decode_step(self.params, cfg, next_tok,
-                                                  pos, caches)
+            logits = decoder.step(next_tok, pos)
             next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
             toks_np = next_tok[:, 0].cpu().numpy()
             for i, r in enumerate(requests):
@@ -128,6 +139,19 @@ class ServeEngine:
                     r.generated.append(int(toks_np[i]))
             self._check_memory(caches, pos)
         return requests
+
+    def _decoder(self, batch: int) -> EagerDecode:
+        """The decode step for ``batch`` requests, its caches zeroed: a
+        shape seen before reuses its capture."""
+        key = (batch, self.ecfg.max_context)
+        decoder = self.decoders.get(key)
+        if decoder is None:
+            decoder = self.decoders[key] = decoder_for(
+                self.params, self.cfg, batch, self.ecfg.max_context,
+                self.device)
+        else:
+            decoder.reset()
+        return decoder
 
     # -- instrumentation (paper §3.2.2) --------------------------------------------
 

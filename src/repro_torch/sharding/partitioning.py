@@ -270,6 +270,67 @@ def flatten(x, start: int, end: int):
     return _Flatten.apply(x, start % x.ndim, end % x.ndim)
 
 
+def einsum(equation: str, a, b):
+    """``torch.einsum(equation, a, b)``.  Two DTensors sharded only on
+    batch letters (letters of both operands and of the output) are
+    contracted shard by shard through ``local_map``: the product is
+    independent along a batch letter, so the local einsum is the sharded
+    result.  Where one operand is sharded on a batch letter along a mesh
+    dim and the other is replicated or partial there, the other is first
+    redistributed to the same shard (a local slice, or the reduce-scatter
+    that DTensor's own rule picks).  DTensor's own rule instead merges the
+    batch dims, which torch 2.11 refuses with a shard on any but the
+    first.  Any other pair goes to ``torch.einsum`` as it is."""
+    if type(a) is torch.Tensor or not (_is_dtensor(a) and _is_dtensor(b)):
+        return torch.einsum(equation, a, b)
+    plan = _batch_local_plan(equation, a, b)
+    if plan is None:
+        return torch.einsum(equation, a, b)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    to_a, to_b, out = plan
+    a = a if tuple(a.placements) == to_a else a.redistribute(mesh, to_a)
+    b = b if tuple(b.placements) == to_b else b.redistribute(mesh, to_b)
+    return local_map(lambda x, y: torch.einsum(equation, x, y),
+                     out_placements=out, in_placements=(to_a, to_b),
+                     device_mesh=mesh)(a, b)
+
+
+def _batch_local_plan(equation: str, a, b):
+    """(a's placements, b's placements, the output's) of :func:`einsum`'s
+    local path, or None where it does not apply: a mesh dim sharding the
+    two on different letters, either on a letter that is not a batch
+    letter, partial in both or partial against replicated, or a batch
+    letter that its shards do not split evenly."""
+    from torch.distributed.tensor import Shard
+    ins, res = equation.replace(" ", "").split("->")
+    ia, ib = ins.split(",")
+    if a.device_mesh != b.device_mesh or "." in equation:
+        return None
+    mesh = a.device_mesh
+    to_a, to_b, out, ways = [], [], [], {}
+    for i, (pa, pb) in enumerate(zip(a.placements, b.placements)):
+        la = ia[pa.dim] if pa.is_shard() else None
+        lb = ib[pb.dim] if pb.is_shard() else None
+        if pa.is_replicate() and pb.is_replicate():
+            to_a.append(pa)
+            to_b.append(pb)
+            out.append(pa)
+            continue
+        letter = la or lb
+        if (letter is None or (la and lb and la != lb)
+                or not (letter in ib and letter in ia and letter in res)):
+            return None
+        ways[letter] = ways.get(letter, 1) * mesh.size(i)
+        to_a.append(Shard(ia.index(letter)))
+        to_b.append(Shard(ib.index(letter)))
+        out.append(Shard(res.index(letter)))
+    for letter, n in ways.items():
+        if a.shape[ia.index(letter)] % n:
+            return None
+    return tuple(to_a), tuple(to_b), out
+
+
 def index_add(x, dim: int, index, source):
     """``x.index_add_(dim, index, source)``, in place, returning x; a
     DTensor gets the out-of-place ``index_add`` instead (DTensor's

@@ -716,3 +716,138 @@ def test_static_estimate_at_qwen3_beside_the_card(card):
     assert peak >= fp.params_bytes + fp.kv_cache_bytes
     print(f"qwen3-0.6b estimate {fp.total_gb:.3f} GiB, allocator peak "
           f"{peak / 2**30:.3f} GiB")
+
+
+# -- the captured decode step (serving/decode_graph.py) ------------------
+
+
+def _graph_cfg(variant):
+    """qwen3's smoke config (plain, int8) or gemma3's with a ring of 4
+    slots (5 layers: 2 groups of a local and a global layer, a local
+    tail), and its bf16 weights on the card."""
+    if variant == "ring":
+        cfg = dataclasses.replace(get_smoke_config("gemma3-27b"),
+                                  windowed_cache=True, sliding_window=4,
+                                  n_layers=5)
+    else:
+        cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
+                                  kv_quant=variant == "int8")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, cast_tree(registry.init_params(gen, cfg)[0], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "int8", "ring"])
+def test_decode_graph_equals_eager_decode(card, variant):
+    """A prompt of 6 tokens prefilled into the graph's caches, then 12
+    steps (the ring wraps three times) replayed on the graph and run
+    eagerly with an int position on a copy of the caches: logits and
+    every cache leaf equal bit for bit."""
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.serving.decode_graph import DecodeGraph
+    cfg, params = _graph_cfg(variant)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 18), device=card, generator=gen)
+    with torch.inference_mode():
+        graph = DecodeGraph(params, cfg, 2, 24, card)
+        assert not any(leaf.any() for leaf in tree_leaves(graph.caches))
+        registry.prefill_caches(params, cfg, tok[:, :6], graph.caches)
+        eager = registry.init_caches(cfg, 2, 24, card)
+        for mine, theirs in zip(tree_leaves(eager), tree_leaves(graph.caches)):
+            mine.copy_(theirs)
+        for pos in range(6, 18):
+            t = tok[:, pos:pos + 1]
+            got = graph.step(t, pos).clone()
+            want, _ = registry.decode_step(params, cfg, t, pos, eager)
+            assert torch.equal(got, want), pos
+    for mine, theirs in zip(tree_leaves(eager), tree_leaves(graph.caches)):
+        assert torch.equal(mine, theirs)
+
+
+@pytest.mark.cuda
+def test_engine_reuses_its_graph_and_recaptures_a_new_batch(card):
+    """Two runs of one batch share a capture (its caches zeroed between
+    them) and give the same tokens and accountant series, which equal an
+    eager engine's on the card; a new batch captures a graph of its own."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving.decode_graph import DecodeGraph, EagerDecode
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    cfg, params = _graph_cfg("plain")
+    ecfg = EngineConfig(max_batch=3, max_context=48, predict=False)
+    engine = ServeEngine(cfg, params, ecfg, device=card)
+    first = [r.generated for r in engine.run(make_requests(cfg, 3, 8, 16, 0))]
+    series = engine.accountant.series()
+    graph = engine.decoders[(3, 48)]
+    assert type(graph) is DecodeGraph
+    again = [r.generated for r in engine.run(make_requests(cfg, 3, 8, 16, 0))]
+    assert engine.decoders[(3, 48)] is graph and again == first
+    eager = ServeEngine(cfg, params, ecfg, device=card)
+    eager.decoders[(3, 48)] = EagerDecode(params, cfg, 3, 48, card)
+    assert [r.generated for r in eager.run(make_requests(cfg, 3, 8, 16, 0))] \
+        == first
+    for xs, ys, zs in zip(engine.accountant.series(), series,
+                          eager.accountant.series()):
+        np.testing.assert_array_equal(xs, ys)
+        np.testing.assert_array_equal(xs, zs)
+    engine.run(make_requests(cfg, 2, 8, 16, 0))
+    assert engine.decoders[(2, 48)] is not graph
+    assert type(engine.decoders[(2, 48)]) is DecodeGraph
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(card, monkeypatch):
+    """A step that reads a device value on the host cannot be captured:
+    the graph raises, and nothing runs eagerly in its place; a later
+    capture of the real step works."""
+    from repro_torch.serving import decode_graph
+    cfg, params = _graph_cfg("plain")
+    step = registry.decode_step
+
+    def syncing(*args, **kwargs):
+        logits, caches = step(*args, **kwargs)
+        float(logits.float().sum())
+        return logits, caches
+
+    monkeypatch.setattr(decode_graph.registry, "decode_step", syncing)
+    with pytest.raises(RuntimeError):
+        decode_graph.DecodeGraph(params, cfg, 2, 16, card)
+    monkeypatch.setattr(decode_graph.registry, "decode_step", step)
+    graph = decode_graph.DecodeGraph(params, cfg, 2, 16, card)
+    assert bool(torch.isfinite(graph.step(
+        torch.zeros((2, 1), dtype=torch.int64, device=card), 0)).all())
+
+
+@pytest.mark.cuda
+def test_multi_tenant_restart_recaptures_under_the_lease(card, monkeypatch):
+    """The smoke flow on the card (f32 weights, as the CPU test's) with
+    the grower's predictor held to a tiny lease: every run captures its
+    own graph, the grower's restart on 1g.20gb a second one, and each
+    run's allocator peak, graph pool included, stays within its lease."""
+    from repro_torch.launch import multi_tenant as mt
+    from repro_torch.serving.decode_graph import DecodeGraph
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = cast_tree(registry.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)[0], torch.float32)
+    run, built = mt.run_job_on_slice, []
+
+    def small_lease(job, cfg, params, device, partition_gb, predictor=None):
+        if predictor is not None:
+            partition_gb = 0.007
+        return run(job, cfg, params, device, partition_gb, predictor)
+
+    def counting(*args):
+        built.append(mt_decoder_for(*args))
+        return built[-1]
+
+    mt_decoder_for = mt.decoder_for
+    monkeypatch.setattr(mt, "run_job_on_slice", small_lease)
+    monkeypatch.setattr(mt, "decoder_for", counting)
+    pm, tenants = mt.run_tenants(cfg, params, mt.make_jobs(smoke=True), card,
+                                 log=lambda line: None)
+    grower = tenants[-1]
+    assert [s.profile for s in grower.slices] == ["1g.10gb", "1g.20gb"]
+    assert len(built) == 4 and all(type(g) is DecodeGraph for g in built)
+    assert len({id(g) for g in built}) == 4
+    assert all(s.peak_gb <= s.lease_gb for t in tenants for s in t.slices)
+    assert [len(t.tokens) for t in tenants] == [24, 24, 48]
+    assert pm.state == frozenset() and not pm.live

@@ -516,6 +516,20 @@ got = shard_batch({"tokens": torch.empty((8, 16), device="meta"),
                    "labels": [Shard(0), Replicate()]})
 out["shard_batch"] = {k: list(v.to_local().shape) for k, v in got.items()}
 
+# decode_32k on 16x16 where both batch and kv heads are sharded (the
+# einsums of attention._sdpa, which torch 2.11's DTensor rule refuses)
+out["decode_32k"] = {}
+for arch in ("gemma3-27b", "zamba2-7b", "whisper-medium"):
+    res = dryrun.run_combo(arch, "decode_32k")
+    out["decode_32k"][arch] = {
+        "ok": res.ok, "error": res.error, "flops": res.flops,
+        "argument_bytes": res.argument_bytes,
+        "temp_bytes": res.temp_bytes,
+        "per_device_bytes": res.per_device_bytes,
+        "collectives": {k: res.collectives[k] for k in
+                        ("all-gather", "all-reduce", "reduce-scatter",
+                         "all-to-all", "collective-permute")}}
+
 # the CLI, as a user types it
 dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
              "--out", sys.argv[1]])
@@ -572,3 +586,120 @@ def test_dryrun_cli_decode_on_the_production_mesh(fake_world):
     assert res["collectives"]["total"] > 0
     assert res["per_device_bytes"] == res["argument_bytes"] + \
         res["temp_bytes"]
+
+
+#: per-device figures of decode_32k on the 16x16 mesh, where kv heads and
+#: batch are both sharded, so each of attention._sdpa's einsums meets two
+#: sharded batch dims (torch 2.11's DTensor refused to merge them).  Since
+#: the einsums run shard by shard (sharding/partitioning.py::einsum):
+#: gemma3-27b's figures are the ones the tree before that change gave, to
+#: the byte; zamba2-7b's too but temp_bytes, 553,472 B lower (DTensor's
+#: einsum held 16 int64 index chunks and a 256 KiB buffer at the peak);
+#: whisper-medium's cross attention, whose q is partial over "data", now
+#: reduce-scatters q to the batch shard of the cross K/V where DTensor's
+#: rule gathered the cross K/V over the batch (before: 2,743,500,800 FLOPs,
+#: temp 51,947,096 B, all-gather 1,188,318,208 B, all-reduce 19,611,648 B).
+DECODE_32K_PINNED = {
+    "gemma3-27b": {
+        "flops": 43650646016.0, "argument_bytes": 8533872192,
+        "temp_bytes": 352321536, "per_device_bytes": 8886193728,
+        "collectives": {"all-gather": 25577472, "all-reduce": 10665984,
+                        "reduce-scatter": 4198400, "all-to-all": 48513024,
+                        "collective-permute": 0}},
+    "zamba2-7b": {
+        "flops": 12189442048.0, "argument_bytes": 3184232560,
+        "temp_bytes": 122027008, "per_device_bytes": 3306259568,
+        "collectives": {"all-gather": 324779008, "all-reduce": 308054560,
+                        "reduce-scatter": 19455744, "all-to-all": 15518720,
+                        "collective-permute": 0}},
+    "whisper-medium": {
+        "flops": 2190540800.0, "argument_bytes": 1696470592,
+        "temp_bytes": 13303808, "per_device_bytes": 1709774400,
+        "collectives": {"all-gather": 2378752, "all-reduce": 1179648,
+                        "reduce-scatter": 346880, "all-to-all": 3987456,
+                        "collective-permute": 0}},
+}
+
+
+@pytest.mark.parametrize("arch", list(DECODE_32K_PINNED))
+def test_decode_32k_with_sharded_batch_and_kv_heads_is_pinned(fake_world,
+                                                              arch):
+    got = dict(fake_world[0]["decode_32k"][arch])
+    assert got.pop("ok"), got["error"]
+    got.pop("error")
+    assert got == DECODE_32K_PINNED[arch]
+
+
+def _sdpa_before(q, k, v, bias):
+    """attention._sdpa's arithmetic as it was written with torch.einsum."""
+    b_, sq, h, hd = q.shape
+    kh = k.shape[2]
+    q = q.unflatten(2, (kh, h // kh))
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
+    scores = scores / np.sqrt(hd)
+    scores = scores + (bias[None, None, None] if bias.dim() == 2
+                       else bias[:, :, None])
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b_, sq, h, hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq", [1, 7])
+def test_sdpa_on_plain_tensors_is_unchanged_bit_for_bit(dtype, sq):
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn((2, sq, 6, 16), generator=gen).to(dtype)
+    k, v = (torch.randn((2, 9, 2, 16), generator=gen).to(dtype)
+            for _ in range(2))
+    bias = torch.where(torch.rand((sq, 9), generator=gen) < 0.2,
+                       attention.NEG_INF, 0.0)
+    cfg = get_smoke_config("qwen3-0.6b")
+    assert torch.equal(attention._sdpa(q, k, v, bias, cfg),
+                       _sdpa_before(q, k, v, bias))
+
+
+class _Mesh:
+    def __init__(self, *sizes):
+        self.sizes = sizes
+
+    def size(self, i):
+        return self.sizes[i]
+
+
+class _DT:
+    """What the local-einsum plan reads of a DTensor."""
+
+    def __init__(self, shape, placements, mesh):
+        self.shape, self.placements, self.device_mesh = \
+            shape, placements, mesh
+
+
+def test_einsum_local_plan_shards_only_batch_letters():
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = _Mesh(16, 16)
+    eq = "bqkgd,bskd->bkgqs"
+    q = _DT((128, 1, 16, 2, 128), (Shard(0), Shard(2)), mesh)
+    k = _DT((128, 32768, 16, 128), (Shard(0), Shard(2)), mesh)
+    # both on batch letters: no redistribution
+    assert part._batch_local_plan(eq, q, k) == (
+        (Shard(0), Shard(2)), (Shard(0), Shard(2)), [Shard(0), Shard(1)])
+    # a partial q is reduce-scattered to k's batch shard, a replicated
+    # one sliced to it
+    for p in (Partial(), Replicate()):
+        qp = _DT(q.shape, (p, Shard(2)), mesh)
+        assert part._batch_local_plan(eq, qp, k)[0] == (Shard(0), Shard(2))
+    # k sharded on its context (not a batch letter), two different
+    # letters, partial against replicated, an uneven split: DTensor's rule
+    ks = _DT(k.shape, (Shard(0), Shard(1)), mesh)
+    qr = _DT(q.shape, (Shard(0), Replicate()), mesh)
+    assert part._batch_local_plan(eq, q, ks) is None
+    assert part._batch_local_plan(eq, qr, ks) is None
+    assert part._batch_local_plan(
+        eq, _DT(q.shape, (Partial(), Shard(2)), mesh),
+        _DT(k.shape, (Replicate(), Shard(2)), mesh)) is None
+    assert part._batch_local_plan(
+        eq, _DT((8, 1, 16, 2, 128), (Shard(0), Shard(2)), mesh),
+        _DT((8, 32768, 16, 128), (Shard(0), Shard(2)), mesh)) is None
+    # plain tensors never reach the plan
+    a, b = torch.ones(2, 3), torch.ones(3, 4)
+    assert torch.equal(part.einsum("ij,jk->ik", a, b), a @ b)
