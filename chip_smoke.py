@@ -117,13 +117,23 @@ Phases, each raising on failure (the script then exits non-zero):
    memory, then the f32 smoke config's greedy tokens on both paths;
 6. training, on the plain path (the kernels have no backward and refuse
    autograd): (a) qwen3-0.6b at full width, bf16 params and f32 moments,
-   8 steps of B=8, S=512 through make_train_step as launch/train.py runs
-   them, with each step's loss, grad norm and ms, tokens/s and peak
-   memory; the kernels' launch counts must not move; the final state
-   saved and loaded through training/checkpoint.py must come back bit for
-   bit; (b) the three smoke configs in f32, 3 steps on the card against
-   the same steps on the CPU, loss and grad norm within 1e-4; (c) both
-   kernels, on both routes, raise when an input requires grad;
+   8 steps of B=8, S=512 from one initial state on the same batches, in
+   turns: the eager step (make_train_step), the step captured as one CUDA
+   graph as launch/train.py runs it (training/train_graph.py) twice, the
+   eager step again; each step's loss, grad norm, CUDA-event and host ms,
+   tokens/s over steps 2-7, the capture's seconds and every run's
+   allocator peak, beside the card's name and power limit; the two eager
+   runs against each other bit for bit (metrics at every step; params,
+   moments and step after the last), then the graph against eager bit for
+   bit where eager equals itself, else the gradients that two eager
+   backwards give apart named; then eager and a graph captured under
+   deterministic algorithms, 3 steps, bit for bit; the kernels' launch
+   counts must not move; the graph's final state saved and loaded
+   through training/checkpoint.py must come back bit for bit; (b) the
+   three smoke configs in f32, 3 steps on the card, eager and on the
+   graph, against the same steps on the CPU, loss and grad norm within
+   1e-4; (c) both kernels, on both routes, raise when an input requires
+   grad;
 7. scheduler: the paper's batch scheduler through the port's entry points
    on the card machine's host (the scheduler models the device and
    launches nothing on it; the kernels' counts must stay 0): (a) Fig. 4,
@@ -177,9 +187,13 @@ Phases, each raising on failure (the script then exits non-zero):
    S=512 beside the measured prefill ms, with no limit; (a2) decode_32k
    on the 16x16 production mesh, in this process, for gemma3-27b,
    zamba2-7b and whisper-medium, whose batch and kv heads are both
-   sharded: each must trace on the card machine's torch, its roofline
-   row, collectives and bytes printed and its FLOPs equal to the pinned
-   count (ROADMAP queue 3 fault 3); (b) ``python -m
+   sharded and the embedding table is sharded on the vocab: each must
+   trace on the card machine's torch, its roofline row, bytes and
+   collectives printed beside torch 2.13's pins (DECODE_32K_PINNED), with
+   the collectives at the embedding lookup's site and the largest
+   all-gather; its FLOPs and argument bytes must equal the pins and no
+   all-gather may move the embedding table's bytes (ROADMAP queue 3
+   faults 3 and 4); (b) ``python -m
    repro_torch.launch.dryrun --arch qwen3-0.6b --shape decode_32k``, then
    ``--shape prefill_32k``, each on the 16x16 production mesh of a fake
    process group, as a user types them, each exiting 0, their roofline
@@ -2178,6 +2192,12 @@ def phase_restart(cfg, params) -> list[str]:
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 #: steps timed for tokens/s (the first two warm cuBLAS and the allocator)
 TRAIN_TIMED = slice(2, 8)
+#: phase 6a's runs in turns, each from the same initial state on the same
+#: batches: the eager step (make_train_step), the captured one twice, the
+#: eager step again
+TRAIN_TURNS = ("eager", "graph", "graph_again", "eager_again")
+#: steps of 6a's eager and captured runs under deterministic algorithms
+DETERMINISTIC_STEPS = 3
 #: phase 6b: f32 smoke steps on the card against the CPU (the limit of
 #: tests/test_torch_training.py's traces against the reference)
 PARITY_STEPS, PARITY_BATCH, PARITY_SEQ, PARITY_REL = 3, 2, 64, 1e-4
@@ -2188,86 +2208,148 @@ PARITY_STEPS, PARITY_BATCH, PARITY_SEQ, PARITY_REL = 3, 2, 64, 1e-4
 ZAMBA2_QK_SCALE = 0.1
 
 
-def phase_train(torch, counters) -> dict:
-    """6a: qwen3-0.6b at full width through make_train_step, the kernels'
-    launch counts set to 0 just before and read just after; then a save
-    and load of the final state through training/checkpoint.py."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.memory.static_estimator import estimate_train
-    from repro_torch.models.module import param_count, tree_leaves
-    from repro_torch.training.checkpoint import (flatten, load_checkpoint,
-                                                 same_bits, save_checkpoint)
-    from repro_torch.training.data import DataConfig, SyntheticLM
-    from repro_torch.training.optimizer import AdamWConfig
-    from repro_torch.training.train_step import (init_train_state,
-                                                 make_train_step)
+def host_state(state) -> dict:
+    """Every leaf of a train state by its checkpoint path, copied to the
+    host."""
+    from repro_torch.training.checkpoint import flatten
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in flatten(state).items()}
 
-    cfg = get_config(ARCH)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(gen, cfg)
-    start = [p.detach().clone() for p in tree_leaves(state["params"])]
-    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
-                                               total_steps=TRAIN_STEPS))
-    batches = SyntheticLM(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED),
-                          "cuda").batches()
+
+def restore_state(torch, state, kept: dict) -> None:
+    from repro_torch.training.checkpoint import flatten
+    with torch.no_grad():
+        for k, v in flatten(state).items():
+            v.copy_(kept[k])
+
+
+def state_diff(torch, state, kept: dict) -> dict:
+    """Per group of the state (params, m, v, step): whether every leaf
+    equals the host copy bit for bit, and the largest |difference|."""
+    from repro_torch.training.checkpoint import flatten, same_bits
+    out = {}
+    for k, v in flatten(state).items():
+        group = k.split("/")[1] if k.startswith("opt/") else "params"
+        v, ref = v.detach(), kept[k].to(v.device)
+        equal = same_bits(v, ref)
+        worst = 0.0 if equal else float((v.float() - ref.float()).abs().max())
+        was = out.get(group, (True, 0.0))
+        out[group] = (was[0] and equal, max(was[1], worst))
+    return out
+
+
+def train_run(torch, step, batches, what: str, cfg) -> dict:
+    """The steps of one run on ``batches``, each timed by CUDA events and
+    the host clock; the allocator's peak over the run (and above what was
+    allocated when it began) and what it holds reserved at the end (a
+    graph's pool, whose blocks count as allocated only while the capture
+    runs, included)."""
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     steps = []
-    for mod in counters.values():
-        mod.launches = 0
-        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
-    for i in range(TRAIN_STEPS):
-        batch = next(batches)
+    for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev0.record()
-        state, metrics = step_fn(state, batch)
+        metrics = step(batch)
         ev1.record()
         torch.cuda.synchronize()
         rec = {"step": i, "ms": ev0.elapsed_time(ev1),
                "wall_ms": (time.perf_counter() - t0) * 1e3,
                **{k: float(v) for k, v in metrics.items()}}
         steps.append(rec)
-        print(f"[train] {cfg.name} step {i}: loss {rec['loss']:.4f} grad "
-              f"norm {rec['grad_norm']:.4f} lr {rec['lr']:.2e} "
+        print(f"[train] {cfg.name} {what} step {i}: loss {rec['loss']:.6f} "
+              f"grad norm {rec['grad_norm']:.6f} lr {rec['lr']:.3e} "
               f"{rec['ms']:.2f} ms (CUDA events; host {rec['wall_ms']:.2f} "
               f"ms)", flush=True)
         if not (math.isfinite(rec["loss"])
                 and math.isfinite(rec["grad_norm"])):
-            raise AssertionError(f"training step {i}: non-finite {rec}")
-    launches = {name: mod.launches for name, mod in counters.items()}
-    if any(launches.values()):
-        raise AssertionError(f"training launched kernels: {launches}")
-    if all(torch.equal(a, b) for a, b in zip(start,
-                                             tree_leaves(state["params"]))):
-        raise AssertionError("training left every param unchanged")
-    del start
+            raise AssertionError(f"{what} training step {i}: non-finite "
+                                 f"{rec}")
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
     timed = steps[TRAIN_TIMED]
-    stats = {
-        "arch": cfg.name, "params": param_count(state["params"]),
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-        "ms_per_step": [r["ms"] for r in steps],
-        "timed_steps": [r["step"] for r in timed],
-        "tokens_per_s": (TRAIN_BATCH * TRAIN_SEQ * len(timed)
-                         / (sum(r["ms"] for r in timed) / 1e3)),
-        "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
-        / 2**30,
-        "static_estimate_gib": estimate_train(cfg, TRAIN_BATCH,
-                                              TRAIN_SEQ).total_gb,
-        "launches": launches,
-    }
-    print(f"[train] {cfg.name}: {stats['params']} params, tokens/s over "
-          f"steps {stats['timed_steps'][0]}-{stats['timed_steps'][-1]}: "
-          f"{stats['tokens_per_s']:.1f}, max_memory_allocated "
-          f"{stats['max_memory_allocated_gib']:.3f} GiB, kernel launches "
-          f"{launches}", flush=True)
-    print_estimate(f"{cfg.name} training (batch {TRAIN_BATCH}, seq "
-                   f"{TRAIN_SEQ})", stats["static_estimate_gib"],
-                   stats["max_memory_allocated_gib"])
+    return {"steps": steps,
+            "ms_per_step": [r["ms"] for r in steps],
+            "wall_ms_per_step": [r["wall_ms"] for r in steps],
+            "tokens_per_s": (TRAIN_BATCH * TRAIN_SEQ * len(timed)
+                             / (sum(r["ms"] for r in timed) / 1e3))
+            if timed else None,
+            "peak_gib": peak / 2**30, "working_gib": (peak - base) / 2**30,
+            "reserved_gib": reserved / 2**30}
 
+
+def same_metrics(a: dict, b: dict) -> bool:
+    keys = ("loss", "aux_loss", "grad_norm", "lr")
+    return all([r[k] for k in keys] == [q[k] for k in keys]
+               for r, q in zip(a["steps"], b["steps"]))
+
+
+def grads_apart(torch, cfg, state, kept, batch, opt) -> list[str]:
+    """The gradients that two eager backwards of one step from the same
+    state on the same batch give apart (the trainer's gradient buffers,
+    by param path)."""
+    from repro_torch.training.checkpoint import flatten, same_bits
+    from repro_torch.training.train_graph import EagerTrain
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+    trainer = EagerTrain(state, cfg, opt, shapes)
+    got = []
+    for _ in range(2):
+        restore_state(torch, state, kept)
+        trainer.step(batch)
+        got.append({k: v.grad.detach().clone() for k, v in
+                    flatten(state["params"]).items()})
+    restore_state(torch, state, kept)
+    return sorted(k for k in got[0] if not same_bits(got[0][k], got[1][k]))
+
+
+def deterministic_run(torch, cfg, state, kept, batches, opt, shapes) -> dict:
+    """The eager step and a graph captured under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, each
+    DETERMINISTIC_STEPS steps from the same state: metrics and the final
+    state bit for bit; the ops that warned are listed."""
+    import warnings
+    from repro_torch.training.train_graph import TrainGraph
+    from repro_torch.training.train_step import make_train_step
+    step_fn = make_train_step(cfg, opt)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            restore_state(torch, state, kept)
+            eager = [{k: float(v) for k, v in step_fn(state, b)[1].items()}
+                     for b in batches[:DETERMINISTIC_STEPS]]
+            final = host_state(state)
+            restore_state(torch, state, kept)
+            graph = TrainGraph(state, cfg, opt, shapes)
+            replayed = [{k: float(v) for k, v in graph.step(b).items()}
+                        for b in batches[:DETERMINISTIC_STEPS]]
+            torch.cuda.synchronize()
+            out["capture_s"] = graph.capture_s
+            del graph
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["metrics_equal"] = eager == replayed
+    out["state"] = state_diff(torch, state, final)
+    out["equal"] = out["metrics_equal"] and all(
+        eq for eq, _ in out["state"].values())
+    out["loss"] = [r["loss"] for r in replayed]
+    out["warned"] = sorted({str(w.message).split(".")[0][:160]
+                            for w in caught})
+    return out
+
+
+def checkpoint_round_trip(torch, state) -> float:
+    """Save and load ``state`` through training/checkpoint.py under
+    build/chip_smoke/ (deleted after); raises unless it comes back bit for
+    bit.  Returns the seconds."""
+    from repro_torch.training.checkpoint import (flatten, load_checkpoint,
+                                                 same_bits, save_checkpoint)
     path = ROOT / "build" / "chip_smoke" / "train_state.npz"
     t0 = time.perf_counter()
     try:
@@ -2280,23 +2362,150 @@ def phase_train(torch, counters) -> dict:
     if sorted(want) != sorted(got) or not all(
             same_bits(want[k], got[k]) for k in want):
         raise AssertionError("checkpoint save/load is not bitwise")
-    stats["checkpoint_s"] = time.perf_counter() - t0
-    print(f"[train] checkpoint of the final state ({len(want)} arrays) "
-          f"saved and loaded bit for bit in {stats['checkpoint_s']:.1f} s",
+    seconds = time.perf_counter() - t0
+    print(f"[train] checkpoint of the graph's final state ({len(want)} "
+          f"arrays) saved and loaded bit for bit in {seconds:.1f} s",
           flush=True)
+    return seconds
+
+
+def phase_train(torch, counters, card: str) -> dict:
+    """6a: qwen3-0.6b at full width from one initial state on the same
+    batches, in turns: the eager step (make_train_step), the step captured
+    as one CUDA graph (training/train_graph.py) twice, the eager step
+    again.  The two eager runs against each other, then the graph against
+    eager, bit for bit (or, where eager differs from itself, the
+    gradients it gives apart named); then both again under deterministic
+    algorithms, bit for bit.  The kernels' launch counts are set to 0 just
+    before and read just after; a save and load of the graph's final
+    state through training/checkpoint.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.memory.static_estimator import estimate_train
+    from repro_torch.models.module import param_count
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_graph import TrainGraph
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(gen, cfg)
+    kept = host_state(state)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, SEED), "cuda")
+    batches = [b for _, b in zip(range(TRAIN_STEPS), data.batches())]
+    step_fn = make_train_step(cfg, opt)
+    for mod in counters.values():
+        mod.launches = 0
+        mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
+    runs, finals, graph = {}, {}, None
+    for what in TRAIN_TURNS:
+        restore_state(torch, state, kept)
+        if what == "graph":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            graph = TrainGraph(state, cfg, opt, data.shapes())
+            capture_s = graph.capture_s
+            capture_peak = torch.cuda.max_memory_allocated() / 2**30
+        step = graph.step if what.startswith("graph") else (
+            lambda b: step_fn(state, b)[1])
+        runs[what] = train_run(torch, step, batches, what, cfg)
+        if what == "eager":
+            finals[what] = state_diff(torch, state, kept)
+            eager_final = host_state(state)
+        else:
+            finals[what] = state_diff(torch, state, eager_final)
+        if what == "graph_again":
+            checkpoint_s = checkpoint_round_trip(torch, state)
+    if all(finals["eager"][g][0] for g in ("params", "m", "v")):
+        raise AssertionError("training left the state unchanged")
+    eager_repro = same_metrics(runs["eager"], runs["eager_again"]) and all(
+        eq for eq, _ in finals["eager_again"].values())
+    graph_equal = {w: same_metrics(runs["eager"], runs[w]) and all(
+        eq for eq, _ in finals[w].values()) for w in ("graph", "graph_again")}
+    spread = {g: d for g, (_, d) in finals["eager_again"].items()}
+    apart_by = {w: {g: d for g, (_, d) in finals[w].items()}
+                for w in graph_equal}
+    print(f"[train graph] {cfg.name}: eager against eager from one state, "
+          f"{TRAIN_STEPS} steps: {'bit for bit' if eager_repro else 'apart'}"
+          f" (largest |difference| {json.dumps(spread)}); graph against "
+          f"eager: {json.dumps(apart_by)}, bit for bit {graph_equal}",
+          flush=True)
+    apart = []
+    if eager_repro:
+        if not all(graph_equal.values()):
+            raise AssertionError(f"the captured step differs from the eager "
+                                 f"one, which equals itself: {finals}")
+    else:
+        apart = grads_apart(torch, cfg, state, kept, batches[0], opt)
+        print(f"[train graph] {cfg.name}: gradients that two eager "
+              f"backwards give apart: {apart} (the embedding's is summed by "
+              f"models/layers.py::_Lookup.backward, an index_add of f32 "
+              f"atomic adds in no fixed order where a token repeats)",
+              flush=True)
+    del graph
+    torch.cuda.empty_cache()
+    det = deterministic_run(torch, cfg, state, kept, batches, opt,
+                            data.shapes())
+    print(f"[train graph] {cfg.name} under deterministic algorithms, "
+          f"{DETERMINISTIC_STEPS} steps: graph against eager bit for bit "
+          f"{det['equal']} ({json.dumps(det['state'])}); capture "
+          f"{det['capture_s']:.3f} s; warnings {det['warned']}", flush=True)
+    if not det["equal"]:
+        raise AssertionError("under deterministic algorithms the captured "
+                             "step differs from the eager one")
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    stats = {
+        "arch": cfg.name, "params": param_count(state["params"]),
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "timed_steps": list(range(TRAIN_STEPS))[TRAIN_TIMED],
+        "runs": {w: {k: v for k, v in r.items() if k != "steps"}
+                 for w, r in runs.items()},
+        "capture_s": capture_s, "capture_peak_gib": capture_peak,
+        "eager_repro": eager_repro, "graph_equal": graph_equal,
+        "spread": spread, "grads_apart": apart, "deterministic": det,
+        "static_estimate_gib": estimate_train(cfg, TRAIN_BATCH,
+                                              TRAIN_SEQ).total_gb,
+        "checkpoint_s": checkpoint_s, "launches": launches, "card": card,
+    }
+    for what in TRAIN_TURNS:
+        r = runs[what]
+        print(f"[train] {cfg.name} {what}: ms/step "
+              f"{[round(x, 3) for x in r['ms_per_step']]} (host "
+              f"{[round(x, 3) for x in r['wall_ms_per_step']]}), tokens/s "
+              f"over steps {stats['timed_steps'][0]}-"
+              f"{stats['timed_steps'][-1]} {r['tokens_per_s']:.1f}, "
+              f"max_memory_allocated {r['peak_gib']:.3f} GiB "
+              f"({r['working_gib']:.3f} above the run's start), reserved "
+              f"{r['reserved_gib']:.3f} GiB ({card})", flush=True)
+    print(f"[train] {cfg.name}: {stats['params']} params; capture "
+          f"{capture_s:.3f} s, max_memory_allocated over "
+          f"the capture {capture_peak:.3f} GiB ({card}); kernel launches "
+          f"{launches}", flush=True)
+    print_estimate(f"{cfg.name} training (batch {TRAIN_BATCH}, seq "
+                   f"{TRAIN_SEQ})", stats["static_estimate_gib"],
+                   runs["eager"]["peak_gib"])
     print(f"[train] {json.dumps(stats)}", flush=True)
     return stats
 
 
 def phase_train_parity(torch) -> dict:
     """6b: each smoke config in f32, PARITY_STEPS steps from one initial
-    state on the card and on the CPU; loss and grad norm within
-    PARITY_REL."""
+    state on the CPU, on the card op by op and on the card as one captured
+    graph; the card's loss and grad norm, eager and graph, within
+    PARITY_REL of the CPU's."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import registry
     from repro_torch.models.module import cast_tree, tree_map
     from repro_torch.training.data import DataConfig, SyntheticLM
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_graph import TrainGraph
     from repro_torch.training.train_step import make_train_step
 
     worst = {}
@@ -2307,31 +2516,44 @@ def phase_train_parity(torch) -> dict:
         if cfg.family == "hybrid":
             for key in ("wq", "wk"):
                 params["shared_attn"][key] *= ZAMBA2_QK_SCALE
-        step_fn = make_train_step(cfg, AdamWConfig(
-            lr=1e-3, warmup_steps=1, total_steps=PARITY_STEPS))
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=PARITY_STEPS)
+        step_fn = make_train_step(cfg, opt)
         trace = {}
-        for dev in ("cpu", "cuda"):
+        for dev, how in (("cpu", "eager"), ("cuda", "eager"),
+                         ("cuda", "graph")):
             p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(),
                          params)
             state = {"params": p, "opt": init_opt_state(p)}
-            batches = SyntheticLM(cfg, DataConfig(PARITY_BATCH, PARITY_SEQ,
-                                                  SEED), dev).batches()
-            trace[dev] = []
-            for _ in range(PARITY_STEPS):
-                state, m = step_fn(state, next(batches))
-                trace[dev].append({k: float(m[k])
-                                   for k in ("loss", "grad_norm")})
-        worst[arch] = max(abs(g[k] - c[k]) / abs(c[k])
-                          for c, g in zip(trace["cpu"], trace["cuda"])
-                          for k in c)
+            data = SyntheticLM(cfg, DataConfig(PARITY_BATCH, PARITY_SEQ,
+                                               SEED), dev)
+            if how == "graph":
+                step = TrainGraph(state, cfg, opt, data.shapes()).step
+            else:
+                step = functools.partial(lambda s, b: step_fn(s, b)[1],
+                                         state)
+            trace[dev, how] = []
+            for _, batch in zip(range(PARITY_STEPS), data.batches()):
+                m = step(batch)
+                trace[dev, how].append({k: float(m[k])
+                                        for k in ("loss", "grad_norm")})
+        cpu, eager, graph = (trace["cpu", "eager"], trace["cuda", "eager"],
+                             trace["cuda", "graph"])
+        rel = {how: max(abs(g[k] - c[k]) / abs(c[k])
+                        for c, g in zip(cpu, card) for k in c)
+               for how, card in (("eager", eager), ("graph", graph))}
+        worst[arch] = rel
+        loss = {how: [r["loss"] for r in run]
+                for how, run in (("cpu", cpu), ("eager", eager),
+                                 ("graph", graph))}
         print(f"[train] {arch} smoke f32, {PARITY_STEPS} steps, card vs "
-              f"CPU: loss {[r['loss'] for r in trace['cuda']]} vs "
-              f"{[r['loss'] for r in trace['cpu']]}, max rel err of loss "
-              f"and grad norm {worst[arch]:.3e} (tol {PARITY_REL})",
-              flush=True)
-        if not worst[arch] <= PARITY_REL:
+              f"CPU: loss graph {loss['graph']}, eager {loss['eager']} vs "
+              f"{loss['cpu']}; max rel err of loss and grad norm graph "
+              f"{rel['graph']:.3e}, eager {rel['eager']:.3e} (tol "
+              f"{PARITY_REL}); graph equals eager on the card: "
+              f"{graph == eager}", flush=True)
+        if not max(rel.values()) <= PARITY_REL:
             raise AssertionError(f"{arch}: card and CPU training disagree "
-                                 f"(rel {worst[arch]})")
+                                 f"({rel})")
     return worst
 
 
@@ -2837,11 +3059,81 @@ def phase_quickstart(torch, counters) -> dict:
             "max_memory_allocated_gib": peak}
 
 
-#: phase 11(a2): per-device FLOPs of decode_32k on the 16x16 mesh, where
-#: the einsums of attention._sdpa meet batch and kv heads both sharded, as
-#: tests/test_torch_dryrun.py pins them
-DECODE_32K_FLOPS = {"gemma3-27b": 43650646016.0, "zamba2-7b": 12189442048.0,
-                    "whisper-medium": 2190540800.0}
+#: phase 11(a2): the per-device figures of decode_32k on the 16x16 mesh,
+#: where the einsums of attention._sdpa meet batch and kv heads both
+#: sharded and the embedding lookup a vocab-sharded table, as
+#: tests/test_torch_dryrun.py::DECODE_32K_PINNED pins them on torch 2.13
+DECODE_32K_PINNED = {
+    "gemma3-27b": {
+        "flops": 43650646016.0, "argument_bytes": 8533872192,
+        "temp_bytes": 352321536, "per_device_bytes": 8886193728,
+        "collectives": {"all-gather": 25577472, "all-reduce": 10665984,
+                        "reduce-scatter": 4198400, "all-to-all": 48513024,
+                        "collective-permute": 0}},
+    "zamba2-7b": {
+        "flops": 12189442048.0, "argument_bytes": 3184232560,
+        "temp_bytes": 122027008, "per_device_bytes": 3306259568,
+        "collectives": {"all-gather": 324779008, "all-reduce": 308054560,
+                        "reduce-scatter": 19455744, "all-to-all": 15518720,
+                        "collective-permute": 0}},
+    "whisper-medium": {
+        "flops": 2190540800.0, "argument_bytes": 1696470592,
+        "temp_bytes": 13303808, "per_device_bytes": 1709774400,
+        "collectives": {"all-gather": 2378752, "all-reduce": 1179648,
+                        "reduce-scatter": 346880, "all-to-all": 3987456,
+                        "collective-permute": 0}},
+}
+
+
+def dryrun_decode_32k(torch) -> dict:
+    """11(a2): decode_32k of each DECODE_32K_PINNED arch on the 16x16
+    production mesh, its figures printed beside the pins, with its
+    collectives and the working set at its peak by code site (op_count's
+    attribution); FLOPs and argument bytes must equal the pins, and no
+    all-gather may move as many bytes as the embedding table."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import padded_vocab
+
+    out = {}
+    for arch, pinned in DECODE_32K_PINNED.items():
+        res = dryrun.run_combo(arch, "decode_32k", sites=True)
+        if not res.ok:
+            raise AssertionError(f"dry run {arch} decode_32k: {res.error}")
+        print(f"[dryrun] {dryrun.roofline_of(res).row()}  [{res.compile_s:.1f}"
+              f"s trace, {res.per_device_bytes / 2**30:.2f} GiB/dev, "
+              f"torch {torch.__version__}]", flush=True)
+        got = {"flops": res.flops, "argument_bytes": res.argument_bytes,
+               "temp_bytes": res.temp_bytes,
+               "per_device_bytes": res.per_device_bytes,
+               "collectives": {k: res.collectives[k]
+                               for k in pinned["collectives"]}}
+        table = get_config(arch)
+        table_bytes = padded_vocab(table) * table.d_model * 2
+        lookup = {k: v for k, v in res.sites.items()
+                  if k.endswith("::lookup")}
+        gathered = res.largest["all-gather"]
+        print(f"[dryrun]       {dryrun.collectives_line(res.collectives)}",
+              flush=True)
+        print("\n".join(f"[dryrun] {line}" for line in
+                        dryrun.sites_lines(res).splitlines()), flush=True)
+        print(f"[dryrun]       {arch} decode_32k on torch "
+              f"{torch.__version__}: {json.dumps(got)}; torch 2.13's pins "
+              f"{json.dumps(pinned)}; differing "
+              f"{sorted(k for k in got if got[k] != pinned[k])}; the lookup's "
+              f"collectives {json.dumps(lookup)}; the largest all-gather "
+              f"{gathered} B of a {table_bytes} B table",
+              flush=True)
+        for key in ("flops", "argument_bytes"):
+            if got[key] != pinned[key]:
+                raise AssertionError(f"{arch} decode_32k: {key} {got[key]}, "
+                                     f"pinned {pinned[key]}")
+        if gathered >= table_bytes:
+            raise AssertionError(f"{arch} decode_32k gathers {gathered} B, "
+                                 f"the embedding table's size "
+                                 f"({table_bytes} B) or more")
+        out[arch] = {**dataclasses.asdict(res), "lookup_collectives": lookup}
+    return out
 
 
 def phase_dryrun(torch, counters, phase4: dict) -> dict:
@@ -2887,22 +3179,9 @@ def phase_dryrun(torch, counters, phase4: dict) -> dict:
     dist.destroy_process_group()
 
     # (a2) decode_32k on the 16x16 production mesh where batch and kv heads
-    # are both sharded (ROADMAP queue 3, fault 3), in this process
-    out["decode_32k"] = {}
-    for arch, flops in DECODE_32K_FLOPS.items():
-        res = dryrun.run_combo(arch, "decode_32k")
-        if not res.ok:
-            raise AssertionError(f"dry run {arch} decode_32k: {res.error}")
-        print(f"[dryrun] {dryrun.roofline_of(res).row()}  [{res.compile_s:.1f}"
-              f"s trace, {res.per_device_bytes / 2**30:.2f} GiB/dev, "
-              f"torch {torch.__version__}]", flush=True)
-        print(f"[dryrun]       {dryrun.collectives_line(res.collectives)}; "
-              f"argument {res.argument_bytes} B, temp {res.temp_bytes} B",
-              flush=True)
-        if res.flops != flops:
-            raise AssertionError(f"{arch} decode_32k: {res.flops} FLOPs, "
-                                 f"pinned {flops}")
-        out["decode_32k"][arch] = dataclasses.asdict(res)
+    # are both sharded (ROADMAP queue 3, fault 3) and the embedding table
+    # on the vocab (fault 4), in this process
+    out["decode_32k"] = dryrun_decode_32k(torch)
     dist.destroy_process_group()
 
     with torch.inference_mode():
@@ -3094,7 +3373,7 @@ def main() -> int:
     # 6. training on the plain path: full-width qwen3, card vs CPU parity,
     # and the kernels' refusal of autograd
     with clock("6 training"):
-        phase_train(torch, counters)
+        phase_train(torch, counters, card)
         phase_train_parity(torch)
         phase_refusal(torch, fa, ssd)
 

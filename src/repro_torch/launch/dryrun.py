@@ -4,6 +4,7 @@ collective and roofline figures.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
         --shape decode_32k [--multi-pod] [--all] [--out experiments/dryrun]
+        [--sites]
 
 The port's counterpart of the reference's ``repro/launch/dryrun.py``.
 Where the reference lowers and compiles each step with XLA for 256 or 512
@@ -91,7 +92,7 @@ def _map(fn, tree):
 
 
 def trace_train(cfg: ModelConfig, preset: ShapePreset, mesh,
-                policy: str = "baseline") -> dict:
+                policy: str = "baseline", sites: bool = False) -> dict:
     prules, arules = apply_policy(policy)
     params, specs = _param_state(cfg)
     big = param_count(cfg) > BIG_PARAM_THRESHOLD / 2
@@ -110,11 +111,11 @@ def trace_train(cfg: ModelConfig, preset: ShapePreset, mesh,
                         arules, False)
     step = make_train_step(cfg, AdamWConfig(),
                            n_microbatches=preset.microbatches)
-    return _trace(step, arules, state, batch)
+    return _trace(step, arules, sites, state, batch)
 
 
 def trace_prefill(cfg: ModelConfig, preset: ShapePreset, mesh,
-                  policy: str = "baseline") -> dict:
+                  policy: str = "baseline", sites: bool = False) -> dict:
     prules, arules = apply_policy(policy)
     params, specs = _param_state(cfg)
     p_sh = _shard_tree(params, specs, mesh, prules, False)
@@ -125,11 +126,11 @@ def trace_prefill(cfg: ModelConfig, preset: ShapePreset, mesh,
     @torch.no_grad()
     def fn(p, b):
         return registry.prefill(p, cfg, b)
-    return _trace(fn, arules, p_sh, batch)
+    return _trace(fn, arules, sites, p_sh, batch)
 
 
 def trace_decode(cfg: ModelConfig, preset: ShapePreset, mesh,
-                 policy: str = "baseline") -> dict:
+                 policy: str = "baseline", sites: bool = False) -> dict:
     """One decode step at the last position of a full cache.  MoE layers
     dispatch by capacity, as the reference's ``decode_step`` does (the
     engine's dropless ``moe_tokens`` counts tokens per expert on the host,
@@ -147,13 +148,13 @@ def trace_decode(cfg: ModelConfig, preset: ShapePreset, mesh,
     def fn(p, t, c):
         return registry.decode_step(p, cfg, t, preset.seq - 1, c,
                                     capacity_moe=True)
-    return _trace(fn, arules, p_sh, tok, caches)
+    return _trace(fn, arules, sites, p_sh, tok, caches)
 
 
-def _trace(fn, act_rules, *args) -> dict:
+def _trace(fn, act_rules, sites, *args) -> dict:
     from torch.distributed.tensor.experimental import implicit_replication
     with active_act_rules(act_rules), implicit_replication():
-        return analyze(fn, *args)
+        return analyze(fn, *args, sites=sites)
 
 
 TRACE = {"train": trace_train, "prefill": trace_prefill,
@@ -179,7 +180,9 @@ class DryRunResult:
     ``flops``, ``collectives`` and ``parsed_out_bytes`` are
     :mod:`~repro_torch.launch.op_count`'s; ``model_flops`` and
     ``hbm_bytes`` the reference's analytic figures.  ``compile_s`` is the
-    host seconds of the trace.
+    host seconds of the trace.  With ``sites``, ``sites``, ``largest``
+    and ``peak_temps`` are op_count's attribution of the collectives and
+    of the working set at the peak to the port's code.
     """
     arch: str
     shape: str
@@ -200,6 +203,9 @@ class DryRunResult:
     parsed_out_bytes: float = 0.0 # per-op output bytes (diagnostic)
     collectives: dict | None = None
     model_flops: float = 0.0
+    sites: dict | None = None
+    largest: dict | None = None
+    peak_temps: list | None = None
 
 
 def mesh_name(mesh) -> str:
@@ -210,7 +216,7 @@ def run_combo(arch: str, shape: str | ShapePreset, multi_pod: bool = False,
               policy: str = "baseline",
               microbatches: int | None = None,
               config_overrides: dict | None = None,
-              mesh=None) -> DryRunResult:
+              mesh=None, sites: bool = False) -> DryRunResult:
     """Trace one (arch, shape) on the production mesh (or ``mesh``)."""
     cfg = get_config(arch)
     if config_overrides:
@@ -234,7 +240,8 @@ def run_combo(arch: str, shape: str | ShapePreset, multi_pod: bool = False,
     n_dev = math.prod(mesh.shape)
     t0 = time.time()
     try:
-        parsed = TRACE[preset.kind](cfg, preset, mesh, policy=policy)
+        parsed = TRACE[preset.kind](cfg, preset, mesh, policy=policy,
+                                    sites=sites)
         res.compile_s = time.time() - t0
         res.argument_bytes = parsed["argument_bytes"]
         res.output_bytes = parsed["output_bytes"]
@@ -245,6 +252,9 @@ def run_combo(arch: str, shape: str | ShapePreset, multi_pod: bool = False,
         res.n_ops = parsed["n_ops"]
         res.parsed_out_bytes = parsed["out_bytes"]
         res.collectives = parsed["collectives"]
+        res.sites = parsed.get("sites")
+        res.largest = parsed.get("largest")
+        res.peak_temps = parsed.get("peak_temps")
         # analytic useful FLOPs (per device): 6*N*D for train (fwd+bwd),
         # 2*N*D for prefill, 2*N per token for decode
         n_active = active_param_count(cfg)
@@ -289,6 +299,16 @@ def collectives_line(colls: dict) -> str:
         f"  total={colls.get('total', 0) / 1e9:.3f}GB"
 
 
+def sites_lines(res) -> str:
+    """A traced combo's attribution (``run_combo(..., sites=True)``): the
+    bytes of each collective kind by code site, the largest single one of
+    each kind, and each storage the step made that is live at its peak."""
+    out = [f"      site  {k}: {v} B" for k, v in res.sites.items()]
+    out.append(f"      largest single collective: {json.dumps(res.largest)}")
+    out += [f"      at the peak  {n} B  {what}" for n, what in res.peak_temps]
+    return "\n".join(out)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default=None, choices=ALL_ARCHS + [None])
@@ -297,6 +317,9 @@ def main(argv=None) -> None:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--sites", action="store_true",
+                    help="also print each collective's and the peak's "
+                         "working set by code site")
     args = ap.parse_args(argv)
 
     archs = ALL_ARCHS if (args.all or args.arch is None) else [args.arch]
@@ -311,7 +334,7 @@ def main(argv=None) -> None:
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                res = run_combo(arch, shape, mp)
+                res = run_combo(arch, shape, mp, sites=args.sites)
                 results.append(dataclasses.asdict(res))
                 tag = f"{arch} x {shape} x {res.mesh}"
                 if res.skipped:
@@ -323,6 +346,8 @@ def main(argv=None) -> None:
                           + f"  [{res.compile_s:.1f}s trace, "
                           f"{res.per_device_bytes / 2**30:.2f} GiB/dev]")
                     print("      " + collectives_line(res.collectives))
+                    if args.sites:
+                        print(sites_lines(res))
                 with open(os.path.join(args.out, "dryrun.json"), "w") as f:
                     json.dump(results, f, indent=1)
     n_ok = sum(1 for r in results if r["ok"])

@@ -21,6 +21,13 @@ would run, and aggregates
   the last tensor on it dies (a weakref finalizer, checked against the
   storage's own weak reference).
 
+With ``sites=True`` it also names where the figures come from, each op by
+its code site (the innermost function of the port's ``models/`` or
+``sharding/`` on the stack): ``sites``, the collectives' bytes by
+``"kind | site"``; ``largest``, the largest single collective of each
+kind; ``peak_temps``, the storages the call made that are live at the
+peak, as (bytes, what made them).
+
 All figures are per device (the local shard's), as the reference's are.
 Eager execution runs every layer and every microbatch, so the while-loop
 trip-count correction that ``hlo_parse`` exists for has no counterpart.
@@ -87,15 +94,19 @@ def _in_alltoall_fallback(depth: int = 12) -> bool:
 
 
 class _LiveStorage:
-    """Bytes of live storages, each counted once, and their peak."""
+    """Bytes of live storages, each counted once, and their peak; with
+    ``track``, what made each storage and those live at the peak."""
 
-    def __init__(self) -> None:
+    def __init__(self, track: bool = False) -> None:
         self.entries: dict[int, list] = {}   # key -> [weakref, nbytes, n]
         self.pending: list = []
         self.bytes = 0
         self.peak = 0
+        self.track = track
+        self.made: dict[int, str] = {}
+        self.at_peak: list[tuple[int, str]] = []
 
-    def add(self, t: torch.Tensor) -> None:
+    def add(self, t: torch.Tensor, made_by: str | None = None) -> None:
         st = t.untyped_storage()
         key = st._cdata
         ent = self.entries.get(key)
@@ -104,7 +115,16 @@ class _LiveStorage:
                 self._drop(key, ent)
             ent = self.entries[key] = [StorageWeakRef(st), st.nbytes(), 0]
             self.bytes += ent[1]
-            self.peak = max(self.peak, self.bytes)
+            if self.track:
+                if made_by is None:
+                    self.made.pop(key, None)
+                else:
+                    self.made[key] = made_by
+            if self.bytes > self.peak:
+                self.peak = self.bytes
+                if self.track:
+                    self.at_peak = [(e[1], self.made[k]) for k, e in
+                                    self.entries.items() if k in self.made]
         ent[2] += 1
         weakref.finalize(t, self._tensor_died, key, ent)
 
@@ -132,8 +152,22 @@ class _LiveStorage:
         self.pending = keep
 
 
+def code_site(depth: int = 64) -> str:
+    """The innermost function of the port's ``models/`` or ``sharding/``
+    on the stack, as ``file.py::function``."""
+    frame = sys._getframe(1)
+    for _ in range(depth):
+        if frame is None:
+            break
+        name = frame.f_code.co_filename.replace("\\", "/")
+        if "/repro_torch/models/" in name or "/repro_torch/sharding/" in name:
+            return f"{name.rsplit('/', 1)[-1]}::{frame.f_code.co_name}"
+        frame = frame.f_back
+    return "?"
+
+
 class _Counter(TorchDispatchMode):
-    def __init__(self) -> None:
+    def __init__(self, sites: bool = False) -> None:
         super().__init__()
         from torch.distributed.tensor import DTensor
         from torch.utils.flop_counter import FlopCounterMode
@@ -145,7 +179,9 @@ class _Counter(TorchDispatchMode):
         self.coll = {c: 0 for c in COLLECTIVES}
         self.alltoall_as_allgather = 0
         self.n_alltoall_as_allgather = 0
-        self.live = _LiveStorage()
+        self.live = _LiveStorage(track=sites)
+        self.sites: dict[str, int] | None = {} if sites else None
+        self.largest = {c: 0 for c in COLLECTIVES}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -168,6 +204,7 @@ class _Counter(TorchDispatchMode):
             self.flops += self.registry[packet](*args, **kwargs, out_val=out)
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        where = code_site() if self.sites is not None else None
         kind = _kind(func)
         if kind is not None:
             got = sum(_nbytes(t) for t in outs)
@@ -178,9 +215,14 @@ class _Counter(TorchDispatchMode):
                     _nbytes(t) for t in tree_flatten(args)[0]
                     if isinstance(t, torch.Tensor))
             self.coll[kind] += got
+            self.largest[kind] = max(self.largest[kind], got)
+            if where is not None:
+                at = f"{kind} | {where}"
+                self.sites[at] = self.sites.get(at, 0) + got
         for t in outs:
             self.out_bytes += _nbytes(t)
-            self.live.add(t)
+            self.live.add(t, where and f"{tuple(t.shape)} {t.dtype} "
+                                       f"{packet.__name__} @ {where}")
         return out
 
 
@@ -205,9 +247,10 @@ def local_nbytes(tree) -> int:
     return total
 
 
-def analyze(fn, *args) -> dict:
+def analyze(fn, *args, sites: bool = False) -> dict:
     """Run ``fn(*args)`` once and return its counts (see the module
-    docstring), plus ``argument_bytes`` (local bytes of ``args``),
+    docstring; ``sites`` adds where they come from), plus
+    ``argument_bytes`` (local bytes of ``args``),
     ``output_bytes`` (of the result) and ``alias_bytes`` (the result's
     bytes that live in an argument's storage: the state or caches a step
     updates in place, as the reference's donated buffers)."""
@@ -215,7 +258,7 @@ def analyze(fn, *args) -> dict:
 
     arg_storages = {local(t).untyped_storage()._cdata
                     for t in tensors(args)}
-    counter = _Counter()
+    counter = _Counter(sites)
     for t in tensors(args):
         counter.live.add(local(t))
     with CommDebugMode() as comm, counter:
@@ -231,7 +274,12 @@ def analyze(fn, *args) -> dict:
             counts[kind] += n
     counts["all-gather"] -= counter.n_alltoall_as_allgather
     counts["all-to-all"] += counter.n_alltoall_as_allgather
+    where = {} if counter.sites is None else {
+        "sites": dict(sorted(counter.sites.items())),
+        "largest": dict(counter.largest),
+        "peak_temps": sorted(counter.live.at_peak, reverse=True)}
     return {
+        **where,
         "flops": float(counter.flops),
         "out_bytes": float(counter.out_bytes),
         "collectives": {**counter.coll, "total": sum(counter.coll.values()),

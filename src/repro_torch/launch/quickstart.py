@@ -7,9 +7,11 @@ completions from the trained weights; the port's copy of the reference's
         [--batch 8] [--seq 128] [--device cpu]
 
 Runs on the card unless given ``--device cpu``, as ``launch/train.py``
-does.  The model is the reduced ``qwen3-0.6b`` smoke config at its default
-``attn_impl``, as in the reference, so neither training nor serving
-reaches a hand-written kernel.  The checkpoint goes through
+does, with the train step captured as one CUDA graph there and run op by
+op on the CPU (``training/train_graph.py``).  The model is the reduced
+``qwen3-0.6b`` smoke config at its default ``attn_impl``, as in the
+reference, so neither training nor serving reaches a hand-written
+kernel.  The checkpoint goes through
 ``training/checkpoint.py`` into a temporary directory and must come back
 bit for bit.  :func:`main` returns what it printed: the logged losses,
 the checkpoint's leaf count and the generated tokens.
@@ -30,7 +32,8 @@ from repro_torch.training.checkpoint import (flatten, load_checkpoint,
                                              same_bits, save_checkpoint)
 from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.optimizer import AdamWConfig
-from repro_torch.training.train_step import init_train_state, make_train_step
+from repro_torch.training.train_graph import trainer_for
+from repro_torch.training.train_step import init_train_state
 
 ARCH = "qwen3-0.6b"
 #: steps between logged losses (the reference's cadence)
@@ -55,13 +58,13 @@ def main(argv: list[str] | None = None) -> dict:
     gen.manual_seed(0)
     state = init_train_state(gen, cfg)
     opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=args.steps)
-    step = make_train_step(cfg, opt)
     data = SyntheticLM(cfg, DataConfig(batch=args.batch, seq=args.seq),
                        device)
+    trainer = trainer_for(state, cfg, opt, data.shapes(), 1, device)
 
     losses: dict[int, float] = {}
     for i, batch in zip(range(args.steps), data.batches()):
-        state, metrics = step(state, batch)
+        metrics = trainer.step(batch)
         if i % LOG_EVERY == 0 or i == args.steps - 1:
             losses[i] = float(metrics["loss"])
             print(f"step {i:4d}  loss {losses[i]:8.3f}  "

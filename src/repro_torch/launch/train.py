@@ -6,9 +6,13 @@
 
 Runs on the card (``--device cuda``, the default) and raises if there is
 none; ``--device cpu`` trains on the CPU (with ``--smoke``, the reduced
-same-family config, for a quick run).  It trains on the plain path: the
-kernels have no backward.  Checkpoints are in the reference's format, so
-``--resume`` takes one written by either package.
+same-family config, for a quick run).  On the card the step (forward,
+backward, AdamW) is captured once as a CUDA graph and replayed, as the
+reference jits it; on the CPU it runs op by op
+(``training/train_graph.py``).  It trains on the plain path: the kernels
+have no backward.  Checkpoints are in the reference's format, so
+``--resume`` takes one written by either package; the step is captured
+after the resume, on the loaded state.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from repro_torch.device import resolve_device
 from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.optimizer import AdamWConfig
-from repro_torch.training.train_step import init_train_state, make_train_step
+from repro_torch.training.train_graph import TrainGraph, trainer_for
+from repro_torch.training.train_step import init_train_state
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -57,9 +62,13 @@ def main(argv: list[str] | None = None) -> None:
         print(f"[train] resumed from {args.resume}")
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                       total_steps=args.steps)
-    step_fn = make_train_step(cfg, opt, n_microbatches=args.microbatches)
     data = SyntheticLM(cfg, DataConfig(batch=args.batch, seq=args.seq,
                                        seed=args.seed), device)
+    trainer = trainer_for(state, cfg, opt, data.shapes(), args.microbatches,
+                          device)
+    if isinstance(trainer, TrainGraph):
+        print(f"[train] step captured as one CUDA graph in "
+              f"{trainer.capture_s:.2f} s")
 
     def sync():
         if device.type == "cuda":
@@ -69,7 +78,7 @@ def main(argv: list[str] | None = None) -> None:
     t0 = time.perf_counter()
     tokens_done = 0
     for i, batch in zip(range(args.steps), data.batches()):
-        state, metrics = step_fn(state, batch)
+        metrics = trainer.step(batch)
         tokens_done += args.batch * args.seq
         if i % args.log_every == 0 or i == args.steps - 1:
             sync()

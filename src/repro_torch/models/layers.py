@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import ParamBuilder
-from repro_torch.sharding.partitioning import constrain, index_add
+from repro_torch.sharding.partitioning import constrain, index_add, lookup
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -77,7 +77,7 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
         ctx.save_for_backward(table, tokens)
-        return table[tokens]
+        return lookup(table, tokens)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):

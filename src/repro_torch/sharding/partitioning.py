@@ -331,6 +331,43 @@ def _batch_local_plan(equation: str, a, b):
     return tuple(to_a), tuple(to_b), out
 
 
+def lookup(table, tokens):
+    """``table[tokens]``, the rows of a [vocab, d] table.  A DTensor table
+    is looked up shard by shard through ``local_map``, on the plan that
+    torch 2.13's DTensor rule for ``aten.index`` picks: along a mesh dim
+    that shards the vocab, the table is resharded onto its d dim (one
+    all-to-all of the local shard); along one that shards d, it stays;
+    along either, the tokens are replicated and the rows come out sharded
+    on d.  Along a mesh dim that replicates the table, the tokens keep
+    their shard and the rows come out sharded as they are.  Torch 2.11's
+    rule instead gathers the whole table.  Any other pair is indexed as it
+    is."""
+    if type(table) is torch.Tensor or not (_is_dtensor(table)
+                                           and _is_dtensor(tokens)):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    to_table, to_tokens, out = [], [], []
+    for pt, px in zip(table.placements, tokens.placements):
+        if pt.is_replicate():
+            to_table.append(pt)
+            to_tokens.append(px)
+            out.append(px)
+        else:
+            to_table.append(Shard(1) if pt.is_shard() else pt)
+            to_tokens.append(Replicate())
+            out.append(Shard(tokens.ndim) if pt.is_shard() else pt)
+    to_table, to_tokens = tuple(to_table), tuple(to_tokens)
+    if tuple(table.placements) != to_table:
+        table = table.redistribute(mesh, to_table)
+    if tuple(tokens.placements) != to_tokens:
+        tokens = tokens.redistribute(mesh, to_tokens)
+    return local_map(lambda t, x: t[x], out_placements=out,
+                     in_placements=(to_table, to_tokens),
+                     device_mesh=mesh)(table, tokens)
+
+
 def index_add(x, dim: int, index, source):
     """``x.index_add_(dim, index, source)``, in place, returning x; a
     DTensor gets the out-of-place ``index_add`` instead (DTensor's

@@ -60,6 +60,18 @@ class SyntheticLM:
         x = self.rng.standard_normal((b, n, d)) * 0.02
         return torch.from_numpy(x).to(self.device, torch.bfloat16)
 
+    def shapes(self) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+        """``{key: (shape, dtype)}`` of every batch :meth:`batches`
+        yields."""
+        b, s, d = self.data.batch, self.data.seq, self.cfg.d_model
+        out = {"tokens": ((b, s), torch.int64),
+               "labels": ((b, s), torch.int64)}
+        if self.cfg.family == "audio":
+            out["frames"] = ((b, self.cfg.enc_seq, d), torch.bfloat16)
+        if self.cfg.family == "vlm" and self.cfg.vision_tokens:
+            out["patches"] = ((b, self.cfg.vision_tokens, d), torch.bfloat16)
+        return out
+
     def batches(self) -> Iterator[dict]:
         """Endless batches: ``tokens``/``labels`` [B, S] int64 (labels are
         the tokens shifted by one), and ``frames`` (audio) or ``patches``

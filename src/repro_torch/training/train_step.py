@@ -40,6 +40,21 @@ def _microbatches(batch: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def accumulate_grads(params: dict, cfg: ModelConfig, batch: dict,
+                     n_microbatches: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The loss and its backward over ``n_microbatches`` slices of the
+    batch, accumulating into each param's ``.grad``; returns the loss and
+    aux loss, each the f32 sum of the slices' over ``n_microbatches``."""
+    loss = aux = torch.zeros((), dtype=torch.float32,
+                             device=tree_leaves(params)[0].device)
+    for mb in _microbatches(batch, n_microbatches):
+        mb_loss, out = registry.loss_fn(params, cfg, mb)
+        (mb_loss / n_microbatches).backward()
+        loss = loss + mb_loss.detach() / n_microbatches
+        aux = aux + out.aux_loss.detach() / n_microbatches
+    return loss, aux
+
+
 def train_step(state: dict, batch: dict, *, cfg: ModelConfig,
                opt_cfg: AdamWConfig, n_microbatches: int = 1
                ) -> tuple[dict, dict]:
@@ -57,13 +72,7 @@ def train_step(state: dict, batch: dict, *, cfg: ModelConfig,
     leaves = tree_leaves(params)
     for p in leaves:
         p.grad = None
-    loss = aux = torch.zeros((), dtype=torch.float32,
-                             device=leaves[0].device)
-    for mb in _microbatches(batch, n_microbatches):
-        mb_loss, out = registry.loss_fn(params, cfg, mb)
-        (mb_loss / n_microbatches).backward()
-        loss = loss + mb_loss.detach() / n_microbatches
-        aux = aux + out.aux_loss.detach() / n_microbatches
+    loss, aux = accumulate_grads(params, cfg, batch, n_microbatches)
     grads = tree_map(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), params)
     _, _, info = adamw_update(params, grads, state["opt"], opt_cfg)

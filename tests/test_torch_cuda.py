@@ -851,3 +851,113 @@ def test_multi_tenant_restart_recaptures_under_the_lease(card, monkeypatch):
     assert all(s.peak_gb <= s.lease_gb for t in tenants for s in t.slices)
     assert [len(t.tokens) for t in tenants] == [24, 24, 48]
     assert pm.state == frozenset() and not pm.live
+
+
+def _train_smoke(arch, device, qk_scale=None):
+    """An f32 train state of ``arch``'s smoke config on ``device`` and its
+    data, from one seed; zamba2's shared wq and wk scaled as chip_smoke's
+    phase 6b scales them (its random init's gradient is ill-conditioned)."""
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import init_opt_state
+    cfg = get_smoke_config(arch)
+    params = cast_tree(registry.init_params(
+        torch.Generator().manual_seed(0), cfg)[0], torch.float32)
+    if qk_scale is not None:
+        for key in ("wq", "wk"):
+            params["shared_attn"][key] = params["shared_attn"][key] * qk_scale
+    params = tree_map(lambda t: t.to(device).requires_grad_(), params)
+    data = SyntheticLM(cfg, DataConfig(4, 32, seed=1), device)
+    return cfg, {"params": params, "opt": init_opt_state(params)}, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_microbatches", [1, 2])
+def test_train_graph_equals_the_eager_step(card, n_microbatches):
+    """Three steps of qwen3's f32 smoke config replayed on one captured
+    graph and run op by op by train_step from the same state, under
+    deterministic algorithms (the embedding gradient's index_add uses
+    atomics otherwise): metrics and every state leaf bit for bit, no
+    kernel launched, the gradient buffers the graph's own."""
+    from repro_torch.training.checkpoint import flatten, same_bits
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_graph import TrainGraph
+    from repro_torch.training.train_step import make_train_step
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg, graph_state, data = _train_smoke("qwen3-0.6b", card)
+        _, eager_state, _ = _train_smoke("qwen3-0.6b", card)
+        batches = [b for _, b in zip(range(3), data.batches())]
+        launches = (fa.launches, ssd.launches)
+        graph = TrainGraph(graph_state, cfg, opt, data.shapes(),
+                           n_microbatches)
+        step = make_train_step(cfg, opt, n_microbatches)
+        for batch in batches:
+            got = {k: v.clone() for k, v in graph.step(batch).items()}
+            _, want = step(eager_state, batch)
+            for k in want:
+                assert same_bits(got[k], want[k]), k
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert (fa.launches, ssd.launches) == launches
+    a, b = flatten(graph_state), flatten(eager_state)
+    for k in a:
+        assert same_bits(a[k].detach(), b[k].detach()), k
+    assert graph.capture_s > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b", "zamba2-7b"])
+def test_train_graph_on_card_matches_cpu(card, arch):
+    """Three f32 steps of each smoke config on the captured graph against
+    the same steps op by op on the CPU: loss and grad norm within 1e-4
+    (chip_smoke's PARITY_REL)."""
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_graph import trainer_for
+    torch.backends.cudnn.allow_tf32 = False
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    scale = 0.1 if arch == "zamba2-7b" else None
+    traces = {}
+    for dev in ("cpu", "cuda"):
+        cfg, state, data = _train_smoke(arch, dev, scale)
+        trainer = trainer_for(state, cfg, opt, data.shapes(), 1,
+                              torch.device(dev))
+        traces[dev] = [{k: float(v) for k, v in trainer.step(b).items()}
+                       for _, b in zip(range(3), data.batches())]
+    for cpu, gpu in zip(traces["cpu"], traces["cuda"]):
+        for key in ("loss", "grad_norm"):
+            assert abs(gpu[key] - cpu[key]) <= 1e-4 * abs(cpu[key]), (
+                key, traces)
+
+
+@pytest.mark.cuda
+def test_a_failed_train_capture_raises(card, monkeypatch):
+    """A step that reads its loss on the host cannot be captured: the
+    trainer raises, and nothing trains eagerly in its place."""
+    from repro_torch.training import train_step as train_step_mod
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_graph import TrainGraph
+    cfg, state, data = _train_smoke("qwen3-0.6b", card)
+    loss_fn = train_step_mod.registry.loss_fn
+
+    def syncing(*args, **kwargs):
+        loss, out = loss_fn(*args, **kwargs)
+        float(loss)
+        return loss, out
+
+    monkeypatch.setattr(train_step_mod.registry, "loss_fn", syncing)
+    with pytest.raises(RuntimeError):
+        TrainGraph(state, cfg, AdamWConfig(), data.shapes())
+
+
+@pytest.mark.cuda
+def test_train_cli_replays_one_graph_on_card(card, capsys):
+    """launch/train.py on the card captures the step once and logs every
+    step, as on the CPU."""
+    from repro_torch.launch import train
+    train.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "3",
+                "--batch", "2", "--seq", "32", "--log-every", "1"])
+    out = capsys.readouterr().out.splitlines()
+    assert sum(line.startswith("[train] step captured as one CUDA graph")
+               for line in out) == 1
+    assert len([line for line in out if line.startswith("step")]) == 3

@@ -403,6 +403,20 @@ def test_op_count_peak_bytes_counts_each_storage_once_and_frees():
     assert got["collectives"]["total"] == 0
 
 
+def test_op_count_names_the_code_site_of_each_storage_at_the_peak():
+    from repro_torch.models.layers import rmsnorm
+    x = torch.empty((2, 3, 8), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((8,), dtype=torch.bfloat16, device="meta")
+    plain = op_count.analyze(lambda a, b: rmsnorm(a, b), x, w)
+    got = op_count.analyze(lambda a, b: rmsnorm(a, b), x, w, sites=True)
+    assert "sites" not in plain and got["sites"] == {}
+    assert {k: got[k] for k in plain} == plain
+    assert got["largest"] == dict.fromkeys(op_count.COLLECTIVES, 0)
+    assert sum(n for n, _ in got["peak_temps"]) == scratch_bytes(got)
+    assert all(what.endswith("@ layers.py::rmsnorm")
+               for _, what in got["peak_temps"])
+
+
 # -- roofline arithmetic --------------------------------------------------------------
 
 
@@ -530,9 +544,9 @@ for arch in ("gemma3-27b", "zamba2-7b", "whisper-medium"):
                         ("all-gather", "all-reduce", "reduce-scatter",
                          "all-to-all", "collective-permute")}}
 
-# the CLI, as a user types it
+# the CLI, as a user types it, with each collective's code site
 dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
-             "--out", sys.argv[1]])
+             "--out", sys.argv[1], "--sites"])
 print(json.dumps(out))
 """
 
@@ -586,6 +600,13 @@ def test_dryrun_cli_decode_on_the_production_mesh(fake_world):
     assert res["collectives"]["total"] > 0
     assert res["per_device_bytes"] == res["argument_bytes"] + \
         res["temp_bytes"]
+    # --sites: every collective byte has its code site, the peak's
+    # storages add up to the working set
+    assert sum(res["sites"].values()) == res["collectives"]["total"]
+    assert any(k.endswith("partitioning.py::lookup") for k in res["sites"])
+    assert sum(n for n, _ in res["peak_temps"]) == res["temp_bytes"]
+    assert sum(ln.startswith("      site  ") for ln in printed) == len(
+        res["sites"])
 
 
 #: per-device figures of decode_32k on the 16x16 mesh, where kv heads and
