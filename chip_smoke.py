@@ -403,6 +403,10 @@ def phase_kernels(torch, fa, flash_mha, attention_ref) -> list[dict]:
         ("grok-ragged-s200", 8, 200, 48, 8, 128, torch.bfloat16, True, None),
         ("llama4-global-ragged-s200", 8, 200, 40, 8, 128, torch.bfloat16,
          True, None),
+        # D=32, the simt kernel's one bf16 head dim, in both dtypes
+        ("d32-window64", 2, 512, 8, 2, 32, torch.float32, True, 64),
+        ("d32-ragged-s200-bf16", 8, 200, 6, 2, 32, torch.bfloat16, True,
+         None),
     ]
     errors, routes = {}, {}
     for name, b, s, h, kh, d, dtype, causal, window in cases:
@@ -543,6 +547,13 @@ def ssd_work(b, s, h, p, n, chunk, itemsize):
     return nbytes, flops
 
 
+
+def ssd_least_flops(b, s, h, p, n):
+    """The least FLOPs of the function over every blocking of the sequence
+    (the result does not depend on it): ssd_work's count at the chunk that
+    needs fewest, which is one row, the plain recurrence."""
+    return min(ssd_work(b, s, h, p, n, q, 4)[1] for q in range(1, s + 1))
+
 def ssd_errors(y, state, y_ref, state_ref, tol):
     """Max abs errors of y and the state, and whether either leaves its
     tolerance (atol = rtol) or is not finite."""
@@ -594,6 +605,11 @@ def phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked
         ("bf16-p128-n16-chunk32", 8, 512, 8, 128, 16, 32, torch.bfloat16,
          "simt"),
         ("zamba2-chunk64", 8, 512, 112, 64, 64, 64, torch.bfloat16, "sm90"),
+        # the simt kernel's other P, N and chunks: P=128 in two halves of
+        # the state a block, N=100, a chunk of 1024, P=16 at N=16
+        ("p128-n100-chunk1024", 2, 1024, 6, 128, 100, 1024, torch.float32,
+         "simt"),
+        ("p16-n16-chunk32", 8, 512, 16, 16, 16, 32, torch.float32, "simt"),
     ]
     errors, routes = {}, {}
     for name, b, s, h, p, n, chunk, dtype, route in cases:
@@ -630,10 +646,15 @@ def ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs, arch, shape,
     """Both kernels at a serving prefill's shape on the same bf16 inputs:
     each held to ssd_ref there, then timed twice, in turns (sm90, simt,
     simt, sm90), by CUDA-graph replay (the sm90 time includes the wrapper's
-    padding of B and C where N is 64).  The plain version is a 512-step
-    loop, so it is timed over fewer eager calls; the plain chunked SSD (the
-    model's ssm_impl="xla" path) is timed beside it.  Returns the kernels
-    line's entry of each route."""
+    padding of B and C where N is 64); then the simt kernel on f32 inputs
+    of the same shape (the route every f32 call takes), held to ssd_ref at
+    the f32 limits and timed twice the same way, beside its f32 bounds.
+    The plain version is a 512-step loop, so it is timed over fewer eager
+    calls; the plain chunked SSD (the model's ssm_impl="xla" path) is timed
+    beside it.  The operations bound counts the least work over every
+    blocking (ssd_least_flops).  Returns the kernels line's entry of each
+    route on bf16 x, the simt entry with its f32-x figures beside under
+    keys of their own (f32_*)."""
     b, s, h, p, n, chunk = shape
     args = inputs(b, s, h, p, n, torch.bfloat16)
     y_ref, state_ref = ssd_ref(*args)
@@ -654,7 +675,8 @@ def ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs, arch, shape,
     plain_ms = timed_ms(torch, lambda: ssd_ref(*args), n=3, warmup=1)
     chunked_ms = timed_ms(torch, lambda: ssd_chunked(*args, chunk), n=5,
                           warmup=1)
-    nbytes, flops = ssd_work(b, s, h, p, n, chunk, 2)
+    nbytes, flops_ref = ssd_work(b, s, h, p, n, chunk, 2)
+    flops = ssd_least_flops(b, s, h, p, n)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     print(f"[kernels] ssd_scan {arch} B={b} S={s} H={h} P={p} N={n} "
@@ -662,25 +684,69 @@ def ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs, arch, shape,
           f"{ms['sm90_again']:.4f} ms, simt "
           f"{ms['simt']:.4f} / {ms['simt_again']:.4f} ms, plain "
           f"{plain_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms, bound "
-          f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP); no "
-          f"single PyTorch call computes it", flush=True)
-    entries = []
-    for route, source in (("sm90", "ssd_scan_sm90.cu"),
-                          ("simt", "ssd_scan.cu")):
-        entries.append({
-            "name": "ssd_scan", "route": "cuda", "kernel_route": route,
-            "arch": arch, "archs": [arch], "dtype": "bfloat16",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": "src/repro/kernels/ssd_scan.py:29",
-            "max_abs_err": serving_err[route],
-            "ms": ms[route], "ms_repeat": ms[route + "_again"],
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "plain_chunked_ms": chunked_ms,
-            "case_max_abs_err": {k: e for k, e in errors.items()
-                                 if routes[k] == route},
-        })
+          f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {flops} FLOP, the "
+          f"least over blockings; {flops_ref} at Q={chunk}); no single "
+          f"PyTorch call computes it", flush=True)
+
+    args32 = inputs(b, s, h, p, n, torch.float32)
+    y_ref32, state_ref32 = ssd_ref(*args32)
+    y, state = ssd._launch("simt", *args32, chunk)
+    torch.cuda.synchronize()
+    err32, err_s32, bad = ssd_errors(y, state, y_ref32, state_ref32,
+                                     SSD_TOL["float32"])
+    if bad:
+        raise AssertionError(f"ssd_scan (simt) f32 at {arch}'s shape: y "
+                             f"err {err32}, state err {err_s32}")
+    for key in ("simt_f32", "simt_f32_again"):
+        ms[key] = graph_ms(torch, lambda: ssd._launch("simt", *args32,
+                                                      chunk))
+    plain32_ms = timed_ms(torch, lambda: ssd_ref(*args32), n=3, warmup=1)
+    chunked32_ms = timed_ms(torch, lambda: ssd_chunked(*args32, chunk), n=5,
+                            warmup=1)
+    nbytes32, _ = ssd_work(b, s, h, p, n, chunk, 4)
+    t_bytes32 = nbytes32 / PEAK_BYTES_PER_S * 1e3
+    t_ops32 = flops / PEAK_F32_FLOPS * 1e3
+    print(f"[kernels] ssd_scan (simt) {arch} B={b} S={s} H={h} P={p} N={n} "
+          f"Q={chunk} x f32: {ms['simt_f32']:.4f} / "
+          f"{ms['simt_f32_again']:.4f} ms (y err {err32:.3e}, state err "
+          f"{err_s32:.3e}), plain {plain32_ms:.4f} ms, plain chunked "
+          f"{chunked32_ms:.4f} ms; f32 bounds: bytes {t_bytes32:.4f} ms "
+          f"({nbytes32} B), operations {t_ops32:.4f} ms ({flops} FLOP at "
+          f"67 TFLOP/s; {flops_ref / PEAK_F32_FLOPS * 1e3:.4f} ms at the "
+          f"reference's Q={chunk})", flush=True)
+    entries = [{
+        "name": "ssd_scan", "route": "cuda", "kernel_route": "sm90",
+        "arch": arch, "archs": [arch], "dtype": "bfloat16",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:29",
+        "max_abs_err": serving_err["sm90"],
+        "ms": ms["sm90"], "ms_repeat": ms["sm90_again"],
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "plain_chunked_ms": chunked_ms,
+        "case_max_abs_err": {k: e for k, e in errors.items()
+                             if routes[k] == "sm90"},
+    }, {
+        "name": "ssd_scan", "route": "cuda", "kernel_route": "simt",
+        "arch": arch, "archs": [arch], "dtype": "bfloat16",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:29",
+        "max_abs_err": serving_err["simt"],
+        "ms": ms["simt"], "ms_repeat": ms["simt_again"],
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "plain_chunked_ms": chunked_ms,
+        "case_max_abs_err": {k: e for k, e in errors.items()
+                             if routes[k] == "simt"},
+        "f32_max_abs_err": err32,
+        "f32_ms": ms["simt_f32"], "f32_ms_repeat": ms["simt_f32_again"],
+        "f32_plain_ms": plain32_ms, "f32_plain_chunked_ms": chunked32_ms,
+        "f32_bound_ms": max(t_bytes32, t_ops32),
+        "f32_bound_by": "bytes" if t_bytes32 >= t_ops32 else "operations",
+        "f32_bytes_bound_ms": t_bytes32, "f32_ops_bound_ms": t_ops32,
+    }]
     return entries
 
 

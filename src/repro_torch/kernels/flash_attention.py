@@ -163,6 +163,10 @@ def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
         if not (q.is_contiguous() and k.is_contiguous()
                 and v.is_contiguous()):
             raise ValueError("the simt route needs q, k and v contiguous")
+        # the kernel stages by 16-byte cp.async: a view at another offset
+        # is copied to a fresh buffer
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (q, k, v))
         out = torch.empty_like(q)
         with torch.cuda.device(q.device):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

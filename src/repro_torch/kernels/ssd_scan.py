@@ -140,6 +140,14 @@ def _launch(route_name: str, x: torch.Tensor, dt: torch.Tensor,
     n_out = b_in.shape[-1]
     if route_name == "sm90" and n_out < SM90_STATE:
         b_in, c_in = (F.pad(t, (0, SM90_STATE - n_out)) for t in (b_in, c_in))
+    if route_name == "simt":
+        # the simt kernel stages x, B and C by 16-byte cp.async: B and C get
+        # zero columns up to a multiple of 4, and a view at another offset
+        # is copied to a fresh buffer
+        if n_out % 4:
+            b_in, c_in = (F.pad(t, (0, -n_out % 4)) for t in (b_in, c_in))
+        x, b_in, c_in = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (x, b_in, c_in))
     n = b_in.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)

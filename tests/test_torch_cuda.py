@@ -207,6 +207,118 @@ def test_ssd_kernel_matches_plain(card, dtype, b, s, h, p, n, chunk):
     torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+
+# (b, s, h, kh, d, dtype, causal, window): every (dtype, D) the CUDA-core
+# flash kernel takes (f32 at D 32, 64, 112, 128, 256; bf16 at D 32), GQA
+# groups 1, 2, 5, 6 and 8 (a block packs a group's rows, 64 a block),
+# causal and not, windows, ragged S (padded to 64, the pad hidden by
+# kv_len), and zamba2's (D=112, MHA) and gemma-2b's (D=256, MQA) prefill
+SIMT_FLASH_CASES = [
+    (2, 256, 4, 4, 32, F32, True, None), (1, 200, 8, 1, 32, BF16, True, 32),
+    (2, 128, 10, 2, 32, BF16, False, None),
+    (2, 512, 8, 4, 64, F32, True, None), (1, 200, 12, 2, 64, F32, False, None),
+    (1, 1024, 16, 2, 64, F32, True, 128),
+    (8, 512, 32, 32, 112, F32, True, None), (1, 200, 10, 2, 112, F32, True, None),
+    (2, 256, 4, 4, 112, F32, False, None),
+    (2, 512, 16, 8, 128, F32, True, None), (2, 200, 40, 8, 128, F32, True, None),
+    (2, 512, 48, 8, 128, F32, True, 128),
+    (8, 512, 8, 1, 256, F32, True, None), (1, 200, 8, 1, 256, F32, False, None),
+    (2, 512, 6, 1, 256, F32, True, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d,dtype,causal,window", SIMT_FLASH_CASES)
+def test_simt_flash_kernel_matches_plain(card, b, s, h, kh, d, dtype, causal,
+                                         window):
+    """The CUDA-core flash kernel against the plain version at the
+    reference's limits, one launch on the simt route a call."""
+    rng = np.random.default_rng(5 * s + 3 * h + d + kh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d),
+                                                    dtype=np.float32))
+               .to(card, dtype) for n in (h, kh, kh))
+    before = _route_counts()
+    out = flash_mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"sm90": 0, "simt": 1}
+    assert out.shape == (b, s, h, d) and out.dtype == dtype
+    ref = _bhsd(attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
+                              window=window))
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_simt_flash_takes_inputs_off_16_byte_alignment(card):
+    """The kernel stages by 16-byte copies; a contiguous view 4 bytes off
+    alignment is copied by the wrapper and gives the plain result."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(1)
+    flat = [torch.randn(2 * 4 * 128 * 64 + 1, generator=gen, device=card)
+            for _ in range(3)]
+    q, k, v = (t[1:].view(2, 4, 128, 64) for t in flat)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = _route_counts()
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"sm90": 0, "simt": 1}
+    torch.testing.assert_close(out, attention_ref(q, k, v, causal=True),
+                               atol=TOL[F32], rtol=TOL[F32])
+
+
+# (b, s, h, p, n, chunk, dtype): every P (16, 32, 64, and 128, which a
+# block holds in two halves of the state) and N (16, 64, 100, 128) the
+# CUDA-core SSD kernel takes, chunks of 32 to 1024 and partial ones, odd H
+# (a block's second head idle), both serving shapes in f32, and bf16 x off
+# the sm90 route (P != 64, N off 64/128, or a chunk of 32)
+SIMT_SSD_CASES = [
+    (1, 96, 3, 16, 16, 32, F32), (2, 256, 4, 16, 128, 256, BF16),
+    (2, 128, 2, 32, 100, 64, F32), (1, 200, 5, 32, 64, 128, BF16),
+    (8, 512, 80, 64, 128, 256, F32), (8, 512, 112, 64, 64, 256, F32),
+    (1, 200, 3, 64, 100, 256, BF16), (1, 1024, 2, 64, 16, 1024, F32),
+    (2, 96, 4, 64, 64, 32, BF16), (1, 256, 2, 128, 64, 128, F32),
+    (1, 150, 3, 128, 128, 100, F32), (2, 128, 2, 128, 16, 32, BF16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", SIMT_SSD_CASES)
+def test_simt_ssd_kernel_matches_plain(card, b, s, h, p, n, chunk, dtype):
+    """y and the final state of the CUDA-core SSD kernel against the
+    sequential plain version at the reference's limits, one launch on the
+    simt route a call."""
+    assert ssd.route(dtype, p, n, chunk) == "simt"
+    args = _ssd_inputs(card, dtype, b, s, h, p, n, 3 * s + h + p + n + chunk)
+    before = dict(ssd.launches_by_route)
+    y, state = ssd_mixer(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {r: ssd.launches_by_route[r] - before[r] for r in before} == {
+        "sm90": 0, "simt": 1}
+    y_ref, state_ref = ssd_ref(*args)
+    assert y.dtype == dtype and y.shape == (b, s, h, p)
+    assert state.shape == (b, h, p, n)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL[dtype],
+                               rtol=SSD_TOL[dtype])
+    torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_simt_ssd_takes_x_and_b_c_off_16_byte_alignment(card):
+    """x, B and C 4 bytes off alignment are copied by the wrapper, and B
+    and C at an N that is no multiple of 4 get zero columns up to one."""
+    x, dt, a, b_in, c_in = _ssd_inputs(card, F32, 1, 128, 2, 32, 7, 9)
+    x, b_in, c_in = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
+        t.shape) for t in (x, b_in, c_in))
+    assert all(t.is_contiguous() and t.data_ptr() % 16
+               for t in (x, b_in, c_in))
+    before = dict(ssd.launches_by_route)
+    y, state = ssd.ssd_scan(x, dt, a, b_in, c_in, chunk=64)
+    torch.cuda.synchronize()
+    assert ssd.launches_by_route["simt"] == before["simt"] + 1
+    y_ref, state_ref = ssd_ref(x, dt, a, b_in, c_in)
+    torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
 # (b, s, h, chunk): the bf16 wgmma kernel's cases at P=64, N=128: chunks
 # of 64, 128 and 256, one head (a block of one warpgroup) and odd H, ragged
 # S (padded by the adapter), one 64-row step, and 16 steps
