@@ -24,7 +24,8 @@ host ("decode"); and beside them the same 16 steps run eagerly, op by op,
 as the engine ran them before the graph (``registry.decode_step`` at an
 ``int`` position, MoE layers dropless: "decode_eager").  For each window it
 prints the wall
-time, the summed device kernel time, the device's busy share, the kernel
+time, the device's busy time (the union of its kernels' intervals, so
+kernels that overlap count once), the device's busy share, the kernel
 launches, and the kernels that take the most device time, and how many
 launches were flash, SSD and copy kernels, then one JSON line.  It needs a
 card and fails without one.
@@ -45,6 +46,23 @@ from repro_torch.configs import ALL_ARCHS, ONE_CARD_LAYERS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.serving.decode_graph import DecodeGraph
+
+
+def busy_ms(ranges) -> float:
+    """Milliseconds covered by the union of ``(start_us, end_us)``
+    intervals: kernels that overlap count once."""
+    total = 0.0
+    lo = hi = None
+    for s, e in sorted(ranges):
+        if hi is None or s > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    if hi is not None:
+        total += hi - lo
+    return total / 1e3
 
 
 def _window(fn, device) -> dict:
@@ -68,10 +86,10 @@ def _window(fn, device) -> dict:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
         for word in COUNTED:
             named[word] += word in e.name
-    busy_ms = sum(by_name.values())
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms, "launches": len(kernels),
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "busy_share": busy / wall_ms, "launches": len(kernels),
             "launches_named": named,
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 

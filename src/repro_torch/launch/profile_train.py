@@ -9,8 +9,8 @@ f32 moments, ``SyntheticLM`` seed 0, the plain path) and takes two warm-up
 steps.  Then it times one step's three parts between CUDA events: the
 loss forward (``registry.loss_fn``), its backward (each layer recomputed
 under activation checkpointing), and the AdamW update; and it profiles one
-whole ``train_step`` for its wall time, summed device kernel time, busy
-share, launches and the kernels that take the most device time
+whole ``train_step`` for its wall time, device busy time (the union of
+its kernels' intervals), busy share, launches and the kernels that take the most device time
 (``profile_serve._window``).  It prints them and one JSON line.  It needs a
 card and fails without one.
 """

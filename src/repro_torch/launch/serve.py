@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         [--smoke] --requests 4 --prompt-len 8 --max-new 32 \
-        [--partition-gb 10] [--device cuda]
+        [--partition-gb 10] [--device cuda] [--trace serve.jsonl]
 
 Runs on the card (``--device cuda``, the default) on an H100 MIG backend,
 with the prefill on the hand-written kernels: flash attention for the
@@ -23,7 +23,14 @@ smoke configs anywhere; chip_smoke.py and profile_serve.py serve them on
 one card cut to the depths of ``configs.ONE_CARD_LAYERS``).  With
 ``--partition-gb`` the engine runs the time-series predictor against that
 slice size and performs the early restart (regrow to the profile the
-predictor asks for) when the converged peak estimate exceeds it.
+predictor asks for) when the converged peak estimate exceeds it.  With
+``--trace PATH`` every engine of the restart loop records its spans and
+counters into one wall-clock :class:`~repro_torch.obs.trace.Tracer`
+streaming to ``PATH`` (JSONL); the Chrome trace goes beside it
+(``.chrome.json``), and one ``[serve] trace:`` line sums up the served
+batch's run: time to first token, the median and p90 gap between tokens,
+the host ms a decode step in each span, the padding and done-row shares,
+the accountant's peak over the allocator's, and the restarts.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,7 +50,12 @@ from repro_torch.core.partition_state import PartitionBackend
 from repro_torch.core.restart import NeedsLargerPartition
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
-from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
+from repro_torch.obs.trace import Tracer, read_jsonl, write_chrome_trace
+from repro_torch.serving.engine import (SPAN, EngineConfig, Request,
+                                        ServeEngine)
+
+#: the per-step spans whose host ms the trace summary gives
+STEP_SPANS = ("launch", "sync", "tokens", "memory")
 
 
 def make_requests(cfg: ModelConfig, n: int, prompt_len: int, max_new: int,
@@ -58,11 +71,12 @@ def make_requests(cfg: ModelConfig, n: int, prompt_len: int, max_new: int,
 def serve(cfg: ModelConfig, params: dict, requests: list[Request], *,
           max_context: int, partition_gb: float | None,
           backend: PartitionBackend, device: str | torch.device,
-          log=print) -> tuple[ServeEngine, list[Request], list[str]]:
+          log=print, tracer: Tracer | None = None
+          ) -> tuple[ServeEngine, list[Request], list[str]]:
     """The early-restart regrow loop: run the batch on a slice of
     ``partition_gb``; on :class:`NeedsLargerPartition` regrow to the
-    profile it carries and run again.  Returns (engine, requests, the
-    restart lines)."""
+    profile it carries and run again.  Every engine records into
+    ``tracer``.  Returns (engine, requests, the restart lines)."""
     restarts: list[str] = []
     profile_gb = partition_gb
     while True:
@@ -71,7 +85,7 @@ def serve(cfg: ModelConfig, params: dict, requests: list[Request], *,
                                           max_context=max_context,
                                           partition_gb=profile_gb,
                                           predict=profile_gb is not None),
-                             backend=backend, device=device)
+                             backend=backend, device=device, tracer=tracer)
         for r in requests:
             r.generated.clear()
         try:
@@ -87,7 +101,51 @@ def serve(cfg: ModelConfig, params: dict, requests: list[Request], *,
             profile_gb = nxt.mem_gb
 
 
-def main() -> None:
+def trace_summary(records: list[dict]) -> dict:
+    """The served batch's figures from a wall trace of the restart loop:
+    its last ``run`` span (the one that returned) and the counters it
+    ended with, and the restarts of every run."""
+    spans = [r for r in records if r["type"] == "span"]
+    run = [r for r in spans if r["name"] == SPAN + "run"][-1]
+    inside = [r for r in spans
+              if run["t0"] <= r["t0"] and r["t1"] <= run["t1"]]
+    counters: dict[str, list[float]] = {}
+    for r in records:
+        if r["type"] == "counter":
+            counters.setdefault(r["name"][len(SPAN):], []).append(r["value"])
+    last = {name: values[-1] for name, values in counters.items()}
+
+    def stage(name):
+        return [r for r in inside if r["name"] == SPAN + name]
+
+    syncs = [r["t1"] for r in stage("sync")]
+    gaps_ms = np.diff(syncs) * 1e3
+    peak = last.get("allocator_peak_bytes")
+    return {
+        "ttft_ms": (syncs[0] - run["t0"]) * 1e3 if syncs else None,
+        "gap_p50_ms": float(np.median(gaps_ms)) if len(gaps_ms) else None,
+        "gap_p90_ms": (float(np.percentile(gaps_ms, 90)) if len(gaps_ms)
+                       else None),
+        "host_ms_per_step": {
+            name: (float(np.mean([r["t1"] - r["t0"] for r in stage(name)]))
+                   * 1e3 if stage(name) else None)
+            for name in STEP_SPANS},
+        "padding_share": last["padding_tokens"] / (
+            run["args"]["batch"] * run["args"]["padded"]),
+        "done_row_share": (last["decode_rows_done"]
+                           / last["decode_row_steps"]
+                           if last["decode_row_steps"] else None),
+        "accountant_over_allocator": (last["accountant_peak_bytes"] / peak
+                                      if peak else None),
+        "restarts": int(sum(counters["restarts"])),
+    }
+
+
+def _fmt(value, spec: str = ".3f") -> str:
+    return "n/a" if value is None else format(value, spec)
+
+
+def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
     ap.add_argument("--smoke", action="store_true")
@@ -99,7 +157,10 @@ def main() -> None:
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the engines' spans and counters to PATH "
+                    "(JSONL) and its Chrome trace beside it")
+    args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -115,13 +176,22 @@ def main() -> None:
 
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.max_new,
                          args.seed)
+    tracer = (Tracer.wall({"arch": cfg.name, "device": str(device)},
+                          sink=args.trace) if args.trace else None)
     t0 = time.perf_counter()
-    engine, out, _ = serve(cfg, params, reqs, max_context=args.max_context,
-                           partition_gb=args.partition_gb,
-                           backend=MigH100Backend(), device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
+    try:
+        engine, out, _ = serve(cfg, params, reqs,
+                               max_context=args.max_context,
+                               partition_gb=args.partition_gb,
+                               backend=MigH100Backend(), device=device,
+                               tracer=tracer)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+    finally:
+        if tracer is not None:
+            tracer.finish(tracer.wall_seconds(time.time_ns()))
+            tracer.close()
     n_tok = sum(len(r.generated) for r in out)
     print(f"[serve] {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s)")
@@ -131,6 +201,19 @@ def main() -> None:
     peak = engine.accountant.peak_in_use / 1024 ** 3
     print(f"[serve] peak live memory {peak:.3f} GB over "
           f"{len(engine.accountant.history)} iterations")
+    if tracer is not None:
+        header, records = read_jsonl(args.trace)
+        chrome = Path(args.trace).with_suffix(".chrome.json")
+        write_chrome_trace(str(chrome), records, header["meta"])
+        t = trace_summary(records)
+        host = ", ".join(f"{k} {_fmt(v)}"
+                         for k, v in t["host_ms_per_step"].items())
+        print(f"[serve] trace: ttft {_fmt(t['ttft_ms'])} ms, gap p50 "
+              f"{_fmt(t['gap_p50_ms'])} ms p90 {_fmt(t['gap_p90_ms'])} ms, "
+              f"host ms/step {host}, padding {_fmt(t['padding_share'])}, "
+              f"done rows {_fmt(t['done_row_share'])}, accountant/allocator "
+              f"peak {_fmt(t['accountant_over_allocator'])}, restarts "
+              f"{t['restarts']} ({args.trace}, {chrome})")
 
 
 if __name__ == "__main__":

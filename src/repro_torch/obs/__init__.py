@@ -3,7 +3,9 @@ streaming counters; the port's copy of ``repro.obs``.
 
 * :mod:`repro_torch.obs.trace` — :class:`Tracer` (typed spans / instants /
   counters / audits), JSONL persistence, Chrome trace_event export for
-  chrome://tracing / Perfetto per-device Gantt rendering.
+  chrome://tracing / Perfetto per-device Gantt rendering; :func:`wall_span`
+  and :func:`wall_instant`, the serving engine's wall-clock records on
+  ``torch.profiler``'s host clock.
 * :mod:`repro_torch.obs.audit` — flattens a planner :class:`Plan` into the
   replayable decision record the regret oracle consumes.
 * :mod:`repro_torch.obs.replay` — streams a trace back into reconstructed
@@ -30,7 +32,8 @@ from repro_torch.obs.counters import (Counter, Gauge, MetricsRegistry,
 from repro_torch.obs.replay import (DecisionPoint, Replay, TraceRegret,
                                     decision_points, load_replay, trace_regret)
 from repro_torch.obs.trace import (SCHEMA, SCHEMA_VERSION, Tracer, read_jsonl,
-                                   to_chrome_trace, write_chrome_trace)
+                                   to_chrome_trace, wall_instant, wall_span,
+                                   write_chrome_trace)
 
 __all__ = [
     "Counter", "DecisionPoint", "Gauge", "MetricsRegistry", "P2Quantile",
@@ -38,5 +41,6 @@ __all__ = [
     "Tracer", "deciding_tier", "deciding_tier_from_costs",
     "decision_points", "decode_handle", "decode_state", "encode_handle",
     "encode_state", "load_replay", "plan_audit_record", "read_jsonl",
-    "tier_labels", "to_chrome_trace", "trace_regret", "write_chrome_trace",
+    "tier_labels", "to_chrome_trace", "trace_regret", "wall_instant",
+    "wall_span", "write_chrome_trace",
 ]

@@ -6,8 +6,12 @@ simulation layers emit as they run — spans (a job occupying a slice, a
 reconfiguration window, a request's residency in an engine), instants
 (queued/placed/OOM/deferred/migrated markers), counters (queue depth,
 violation probability over time) and planner audits (see
-:mod:`repro_torch.obs.audit`).  Records carry *simulated* seconds; nothing
-here reads a wall clock.
+:mod:`repro_torch.obs.audit`).  The simulators' records carry *simulated*
+seconds.  A tracer made by :meth:`Tracer.wall` instead carries seconds of
+the wall clock that ``torch.profiler`` stamps its host events with
+(``time.time_ns()``), counted from the ``origin_ns`` in its meta, and
+:func:`wall_span` records a span there and, while a profiler records, a
+``record_function`` range of the same name, so the two traces overlay.
 
 The on-disk format is the reference's: JSONL with a header line (the
 schema name is the reference's too, so each package reads the other's
@@ -27,7 +31,10 @@ per-device Gantt of slice occupancy.  Times are exported in microseconds
 
 from __future__ import annotations
 
+import contextlib
 import json
+import sys
+import time
 from typing import Any, Callable, Iterable
 
 SCHEMA = "repro.obs.trace"
@@ -62,6 +69,19 @@ class Tracer:
         if sink is not None:
             self._sink = open(sink, "w")
             self._sink.write(json.dumps(self.header()) + "\n")
+
+    @classmethod
+    def wall(cls, meta: dict[str, Any] | None = None,
+             sink: str | None = None) -> "Tracer":
+        """A tracer on the wall clock: its times are seconds since
+        ``meta["origin_ns"]``, the ``time.time_ns()`` reading at its
+        creation (``meta["clock"] == "time_ns"``)."""
+        return cls({**(meta or {}), "clock": "time_ns",
+                    "origin_ns": time.time_ns()}, sink)
+
+    def wall_seconds(self, ns: int) -> float:
+        """A ``time.time_ns()`` reading in this wall tracer's seconds."""
+        return (ns - self.meta["origin_ns"]) / 1e9
 
     def _emit(self, rec: dict[str, Any]) -> None:
         if self._sink is not None:
@@ -156,6 +176,69 @@ class Tracer:
             for rec in self.records:
                 f.write(json.dumps(rec) + "\n")
         return len(self.records)
+
+
+# -- wall-clock spans ---------------------------------------------------------
+
+#: what :func:`wall_span` returns when neither a tracer nor a profiler records
+_UNTRACED = contextlib.nullcontext()
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process (never before
+    torch is imported, so the host layers need not import it)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
+class _WallSpan:
+    __slots__ = ("tracer", "name", "args", "range", "t0")
+
+    def __init__(self, tracer: Tracer | None, name: str,
+                 args: dict[str, Any], on_profiler: bool) -> None:
+        self.tracer, self.name, self.args = tracer, name, args
+        self.range = None
+        if on_profiler:
+            import torch
+            self.range = torch.profiler.record_function(name)
+
+    def __enter__(self) -> None:
+        if self.range is not None:
+            self.range.__enter__()
+        self.t0 = time.time_ns()
+
+    def __exit__(self, *exc) -> None:
+        t1 = time.time_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if self.tracer is not None:
+            self.tracer.span(self.tracer.wall_seconds(self.t0),
+                             self.tracer.wall_seconds(t1), self.name,
+                             cat="wall", **self.args)
+
+
+def wall_span(tracer: Tracer | None, name: str, **args: Any):
+    """A context manager around one stage of a program on the wall clock:
+    a ``record_function(name)`` range while a ``torch.profiler`` records,
+    and a ``span`` record in ``tracer`` (made by :meth:`Tracer.wall`) when
+    one is given.  With neither it costs one check of whether a profiler
+    records."""
+    on_profiler = _profiling()
+    if tracer is None and not on_profiler:
+        return _UNTRACED
+    return _WallSpan(tracer, name, args, on_profiler)
+
+
+def wall_instant(tracer: Tracer | None, name: str, **args: Any) -> None:
+    """A point event: an ``instant`` record in ``tracer`` and, while a
+    profiler records, a ``record_function`` range of no length."""
+    if _profiling():
+        import torch
+        with torch.profiler.record_function(name):
+            pass
+    if tracer is not None:
+        tracer.instant(name, t=tracer.wall_seconds(time.time_ns()),
+                       cat="wall", **args)
 
 
 def read_jsonl(path: str) -> tuple[dict[str, Any], list[dict[str, Any]]]:

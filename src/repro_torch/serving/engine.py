@@ -19,11 +19,29 @@ prefill runs eagerly into the graph's caches.  On the CPU the same loop
 runs op by op (:class:`~repro_torch.serving.decode_graph.EagerDecode`).
 Either way the position is a device tensor and MoE layers decode through
 the capacity dispatch, the reference's decode dispatch.
+
+Each stage of :meth:`ServeEngine.run` is a span named ``SPAN + stage``
+(:func:`repro_torch.obs.trace.wall_span`): a ``record_function`` range
+while a ``torch.profiler`` records, and a record in the engine's wall
+:class:`~repro_torch.obs.trace.Tracer` when it has one; the stages are
+``run``, ``capture`` (a new decode step's warm-up and capture), ``reset``
+(a seen shape's caches zeroed), ``prefill``, and per decode step
+``launch`` (the token in, the replay enqueued), ``sync`` (the next token
+on the host), ``tokens`` (appended) and ``memory`` (the accountant and the
+predictor).  ``restart`` is an instant where the early restart is raised.
+With a tracer, each run ends with one counter of each of: the batch's
+padding (``padding_tokens``: B x padded length - the prompt tokens), its
+decode row-steps (``decode_row_steps``: steps x B) and those of rows
+already done (``decode_rows_done``), the accountant's peak
+(``accountant_peak_bytes``), the allocator's on the card
+(``allocator_peak_bytes``: the caller resets it), and whether the run
+raised the early restart (``restarts``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -36,9 +54,12 @@ from repro_torch.core.restart import NeedsLargerPartition, early_restart_target
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.models.module import tree_leaves
+from repro_torch.obs.trace import Tracer, wall_instant, wall_span
 from repro_torch.serving.decode_graph import EagerDecode, decoder_for
 
 GB = 1024 ** 3
+#: the prefix of the engine's span, instant and counter names
+SPAN = "repro_torch.serve."
 
 
 @dataclasses.dataclass
@@ -69,12 +90,15 @@ class EngineConfig:
 
 class ServeEngine:
     """Greedy batched decode over a fixed request batch, on ``device``
-    (the card unless the caller passes ``device='cpu'``)."""
+    (the card unless the caller passes ``device='cpu'``); ``tracer``, a
+    :meth:`Tracer.wall`, records its spans and counters (``None``: the
+    untraced path)."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  engine_cfg: EngineConfig,
                  backend: PartitionBackend | None = None,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None,
+                 tracer: Tracer | None = None) -> None:
         self.device = resolve_device(device)
         for leaf in tree_leaves(params):
             if leaf.device.type != self.device.type:
@@ -84,6 +108,7 @@ class ServeEngine:
         self.params = params
         self.ecfg = engine_cfg
         self.backend = backend
+        self.tracer = tracer
         self._reset_run_state()
         self._params_bytes = pytree_nbytes(params)
         #: the decode step per (batch, max_context): a captured graph on
@@ -101,43 +126,77 @@ class ServeEngine:
 
     @torch.inference_mode()
     def run(self, requests: list[Request]) -> list[Request]:
-        cfg, ecfg = self.cfg, self.ecfg
+        cfg, ecfg, tracer = self.cfg, self.ecfg, self.tracer
         if len(requests) > ecfg.max_batch:
             raise ValueError(f"{len(requests)} requests > max_batch "
                              f"{ecfg.max_batch}")
         self._reset_run_state()
         b = len(requests)
         prompt_len = max(len(r.prompt) for r in requests)
-        decoder = self._decoder(b)
-        caches = decoder.caches
+        prompt_tokens = sum(len(r.prompt) for r in requests)
+        kept_before = sum(len(r.generated) for r in requests)
+        steps = restarts = 0
+        try:
+            with wall_span(tracer, SPAN + "run", batch=b, padded=prompt_len,
+                           prompt_tokens=prompt_tokens):
+                decoder = self._decoder(b)
+                caches = decoder.caches
 
-        # prefill: one forward over the padded prompt batch fills the cache
-        toks = np.zeros((b, prompt_len), np.int64)
-        for i, r in enumerate(requests):
-            toks[i, :len(r.prompt)] = r.prompt
-        tokens = torch.from_numpy(toks).to(self.device)
-        if cfg.family == "audio":
-            frames = torch.zeros((b, cfg.enc_seq, cfg.d_model),
-                                 dtype=torch.bfloat16, device=self.device)
-            caches = registry.prefill_encoder(self.params, cfg,
-                                              {"frames": frames}, caches)
-        logits, caches = registry.prefill_caches(self.params, cfg, tokens,
-                                                 caches)
-        self._note_iteration(caches, prompt_len)
+                # prefill: one forward over the padded prompt batch fills
+                # the cache
+                with wall_span(tracer, SPAN + "prefill"):
+                    toks = np.zeros((b, prompt_len), np.int64)
+                    for i, r in enumerate(requests):
+                        toks[i, :len(r.prompt)] = r.prompt
+                    tokens = torch.from_numpy(toks).to(self.device)
+                    if cfg.family == "audio":
+                        frames = torch.zeros((b, cfg.enc_seq, cfg.d_model),
+                                             dtype=torch.bfloat16,
+                                             device=self.device)
+                        caches = registry.prefill_encoder(
+                            self.params, cfg, {"frames": frames}, caches)
+                    logits, caches = registry.prefill_caches(
+                        self.params, cfg, tokens, caches)
+                    self._note_iteration(caches, prompt_len)
+                    next_tok = torch.argmax(logits[:, -1, :cfg.vocab],
+                                            dim=-1)[:, None]
 
-        # decode
-        next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
-        for step in range(max(r.max_new_tokens for r in requests)):
-            pos = prompt_len + step
-            if pos >= ecfg.max_context:
-                break
-            logits = decoder.step(next_tok, pos)
-            next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
-            toks_np = next_tok[:, 0].cpu().numpy()
-            for i, r in enumerate(requests):
-                if not r.done:
-                    r.generated.append(int(toks_np[i]))
-            self._check_memory(caches, pos)
+                # decode
+                for step in range(max(r.max_new_tokens for r in requests)):
+                    pos = prompt_len + step
+                    if pos >= ecfg.max_context:
+                        break
+                    with wall_span(tracer, SPAN + "launch"):
+                        logits = decoder.step(next_tok, pos)
+                    steps += 1
+                    with wall_span(tracer, SPAN + "sync"):
+                        next_tok = torch.argmax(logits[:, -1, :cfg.vocab],
+                                                dim=-1)[:, None]
+                        toks_np = next_tok[:, 0].cpu().numpy()
+                    with wall_span(tracer, SPAN + "tokens"):
+                        for i, r in enumerate(requests):
+                            if not r.done:
+                                r.generated.append(int(toks_np[i]))
+                    with wall_span(tracer, SPAN + "memory"):
+                        self._check_memory(caches, pos, step)
+        except NeedsLargerPartition:
+            restarts = 1
+            raise
+        finally:
+            if tracer is not None:
+                kept = sum(len(r.generated) for r in requests) - kept_before
+                counts = {"padding_tokens": b * prompt_len - prompt_tokens,
+                          "decode_row_steps": steps * b,
+                          "decode_rows_done": steps * b - kept,
+                          "accountant_peak_bytes":
+                              self.accountant.peak_in_use,
+                          "restarts": restarts}
+                if self.device.type == "cuda":
+                    counts["allocator_peak_bytes"] = (
+                        torch.cuda.max_memory_allocated(self.device))
+                t = tracer.wall_seconds(time.time_ns())
+                for name, value in counts.items():
+                    tracer.counter(SPAN + name, value, t=t)
         return requests
 
     def _decoder(self, batch: int) -> EagerDecode:
@@ -146,11 +205,13 @@ class ServeEngine:
         key = (batch, self.ecfg.max_context)
         decoder = self.decoders.get(key)
         if decoder is None:
-            decoder = self.decoders[key] = decoder_for(
-                self.params, self.cfg, batch, self.ecfg.max_context,
-                self.device)
+            with wall_span(self.tracer, SPAN + "capture"):
+                decoder = self.decoders[key] = decoder_for(
+                    self.params, self.cfg, batch, self.ecfg.max_context,
+                    self.device)
         else:
-            decoder.reset()
+            with wall_span(self.tracer, SPAN + "reset"):
+                decoder.reset()
         return decoder
 
     # -- instrumentation (paper §3.2.2) --------------------------------------------
@@ -188,7 +249,7 @@ class ServeEngine:
             return risk * self.ecfg.crash_cost_s > self.ecfg.restart_cost_s
         return self.predictor.will_oom(partition_bytes, pred)
 
-    def _check_memory(self, caches, upto: int) -> None:
+    def _check_memory(self, caches, upto: int, step: int) -> None:
         self._note_iteration(caches, upto)
         if not (self.ecfg.predict and self.ecfg.partition_gb):
             return
@@ -200,8 +261,11 @@ class ServeEngine:
             if self.backend is not None:
                 target = early_restart_target(self.backend,
                                               pred.peak_mem_bytes / GB)
-            raise NeedsLargerPartition(
-                target or _synthetic_profile(pred.peak_mem_bytes / GB))
+            target = target or _synthetic_profile(pred.peak_mem_bytes / GB)
+            wall_instant(self.tracer, SPAN + "restart", step=step,
+                         peak_gib=pred.peak_mem_bytes / GB,
+                         target=target.name)
+            raise NeedsLargerPartition(target)
 
 
 def _synthetic_profile(mem_gb: float) -> PartitionProfile:
