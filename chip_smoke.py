@@ -7,9 +7,9 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. card: name and power limit from nvidia-smi;
 2. build: every kernel source under src/repro_torch/kernels/csrc with nvcc
-   (flash_attention.cu, flash_attention_sm90.cu, ssd_scan.cu and
-   ssd_scan_sm90.cu, one nvcc each, started together), printing nvcc's
-   and ptxas's whole output;
+   (flash_attention.cu, flash_attention_sm90.cu, ssd_scan.cu,
+   ssd_scan_sm90.cu and ssm_state_update.cu, one nvcc each, started
+   together), printing nvcc's and ptxas's whole output;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving paths' shapes (flash at qwen3's, zamba2's, whisper's,
    gemma-2b's (D=256, MQA), gemma3-27b's local (window 1024 over 1536
@@ -20,12 +20,20 @@ Phases, each raising on failure (the script then exits non-zero):
    kernel "sm90", f32 to the CUDA-core kernel "simt"), and so do the
    SSD cases (bf16 at P=64, N 64 or 128 and a chunk that is a multiple of
    64 to the wgmma kernel "sm90", the rest to the CUDA-core kernel
-   "simt"), each case's launch counted on the route it must take;
+   "simt"), each case's launch counted on the route it must take; the
+   decode step's state-update kernel against its plain version at both
+   mamba2-2.7b cells' steps (B=64 and 16), zamba2-7b's and the smoke N=16,
+   in bf16 and f32, updating the state in place, timed by graph replay
+   in turns with the plain version at each served shape (both cells' and
+   zamba2-7b's), each call on its own of 20 states, and held under its
+   bytes bound;
 4. serving: qwen3-0.6b at full width (random bf16 weights from a seed)
    through ServeEngine.run with the prefill on the flash kernel, counting
    the kernels' launches in that run (28 on "sm90", none on "simt"); the
    engine's decode replays one captured CUDA graph of the step
-   (serving/decode_graph.py), which launches neither kernel.  Every
+   (serving/decode_graph.py), which launches neither the flash nor the
+   SSD kernel (a Mamba2 layer's step launches the state-update kernel,
+   counted in phases 4b and 4c).  Every
    serving phase (4 to 4g) also runs, in the same call, the engine with
    the decode step as it ran before the graph (eager, op by op, the
    position a Python int, MoE dropless) and checks the graph against it:
@@ -217,6 +225,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -747,6 +756,139 @@ def ssd_timings(torch, ssd, ssd_ref, ssd_chunked, inputs, arch, shape,
         "f32_bound_by": "bytes" if t_bytes32 >= t_ops32 else "operations",
         "f32_bytes_bound_ms": t_bytes32, "f32_ops_bound_ms": t_ops32,
     }]
+    return entries
+
+
+#: the decode step's state updates (B, H, P, N) and their names: each
+#: mamba2-2.7b benchmark cell's step (decode_chat B=64, prefill_docs B=16),
+#: zamba2-7b's at B=16, and the smoke configs' N=16
+UPDATE_SERVING = [("mamba2-2.7b", "decode_chat", (64, 80, 64, 128)),
+                  ("mamba2-2.7b", "prefill_docs", (16, 80, 64, 128)),
+                  ("zamba2-7b", "zamba2", (16, 112, 64, 64)),
+                  ("mamba2-2.7b", "smoke-n16", (8, 4, 128, 16))]
+#: the served shapes among them, each timed and given a kernels-line entry
+UPDATE_TIMED = UPDATE_SERVING[:3]
+#: states the timed calls take in turn, one a call of graph_ms's 20, as
+#: each layer of the served step updates a state of its own: one state
+#: updated 20 times would stay in the 50 MB L2 where it is smaller (29 MB
+#: at zamba2's step) and time the cache, not the card's memory
+UPDATE_RING = 20
+#: the kernel against the plain version (atol = rtol): y's sum over N is
+#: taken in another order than the plain GEMV's (tests/test_torch_cuda.py)
+UPDATE_TOL = 1e-5
+
+
+def update_bytes(b, h, p, n, itemsize):
+    """Bytes of one state update: the f32 state read and written once, x,
+    dt, B, C and the [H] parameters read once in the inputs' dtype, y
+    written once in f32."""
+    return (8 * b * h * p * n + itemsize * (b * h * p + b * h + 3 * h
+                                            + 2 * b * n) + 4 * b * h * p)
+
+
+def phase_state_update_kernel(torch, su) -> list[dict]:
+    """The decode step's state-update kernel against its plain version on
+    the same inputs (x, B and C views of one conv row buffer and dt a
+    column block of a wider projection, as the decode step hands them
+    over), in bf16 and f32 at each UPDATE_SERVING shape: the state updated
+    in place, one launch a call.  Then at each served shape (UPDATE_TIMED:
+    both cells' and zamba2-7b's), bf16 inputs, the kernel and the plain
+    version timed in turns (kernel, plain, plain, kernel) over 20 graph
+    replays, each call on the next of UPDATE_RING states, and the plain
+    version with the copy of its new state into that state, as the decode
+    step ran it before.  Each entry's ``launches``
+    is filled in later from its arch's ServeEngine.run (set_launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+
+    def inputs(b, h, p, n, dtype):
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+        conv = rnd(b, h * p + 2 * n, scale=0.5).to(dtype)
+        x, b_in, c_in = torch.split(conv, [h * p, n, n], dim=-1)
+        dt = rnd(b, 1, 2 * h * p + 2 * n + h).to(dtype)[:, 0, -h:]
+        return (rnd(b, h, p, n), x.reshape(b, h, p), dt,
+                rnd(h, scale=0.5).to(dtype), rnd(h, scale=0.5).to(dtype),
+                rnd(h).to(dtype), b_in, c_in)
+
+    errors = {}
+    for arch, tag, (b, h, p, n) in UPDATE_SERVING:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = inputs(b, h, p, n, dtype)
+            want_y, want_state = su.ssm_state_update_ref(*args)
+            ptr, before = args[0].data_ptr(), su.launches
+            y, state = su.ssm_state_update(*args)
+            torch.cuda.synchronize()
+            if (su.launches != before + 1 or state is not args[0]
+                    or state.data_ptr() != ptr):
+                raise AssertionError(f"ssm_state_update {tag}: not one "
+                                     f"launch in place")
+            err_y = (y - want_y).abs()
+            err_s = (state - want_state).abs()
+            name = f"{tag}-{str(dtype).split('.')[1]}"
+            errors[name] = (float(err_y.max()), float(err_s.max()))
+            print(f"[kernels] ssm_state_update {name}: y max_abs_err "
+                  f"{errors[name][0]:.3e}, state max_abs_err "
+                  f"{errors[name][1]:.3e} (tol {UPDATE_TOL})", flush=True)
+            if (bool((err_y > UPDATE_TOL + UPDATE_TOL * want_y.abs()).any())
+                    or bool((err_s > UPDATE_TOL
+                             + UPDATE_TOL * want_state.abs()).any())
+                    or not bool(state.isfinite().all())):
+                raise AssertionError(f"ssm_state_update {name}: kernel "
+                                     f"disagrees with the plain version")
+            del args, want_y, want_state, y, state
+
+    card = card_line()
+    entries = []
+    for arch, tag, (b, h, p, n) in UPDATE_TIMED:
+        args = inputs(b, h, p, n, torch.bfloat16)
+        ring = [args[0], *(torch.randn(args[0].shape, generator=gen,
+                                       device="cuda")
+                           for _ in range(UPDATE_RING - 1))]
+        turn = itertools.count()
+
+        def call(update):
+            state = ring[next(turn) % UPDATE_RING]
+            return state, update(state, *args[1:])
+
+        def plain_with_copy():
+            state, (_, new) = call(su.ssm_state_update_ref)
+            state.copy_(new)
+
+        ms = {}
+        for key in ("kernel", "plain", "plain_again", "kernel_again"):
+            update = (su.ssm_state_update if key[0] == "k"
+                      else su.ssm_state_update_ref)
+            ms[key] = graph_ms(torch, functools.partial(call, update))
+        ms["plain_copy"] = graph_ms(torch, plain_with_copy)
+        nbytes = update_bytes(b, h, p, n, 2)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"[kernels] ssm_state_update {tag} B={b} H={h} P={p} N={n} x "
+              f"bf16, {UPDATE_RING} states in turn: kernel {ms['kernel']:.4f}"
+              f" / {ms['kernel_again']:.4f} ms, plain {ms['plain']:.4f} / "
+              f"{ms['plain_again']:.4f} ms, plain and the copy into the cache {ms['plain_copy']:.4f} "
+              f"ms, bound {bound:.4f} ms ({nbytes} B at 3.35 TB/s): "
+              f"{100 * bound / ms['kernel']:.1f}% / "
+              f"{100 * bound / ms['kernel_again']:.1f}% of it [{card}]",
+              flush=True)
+        if bound > min(ms["kernel"], ms["kernel_again"]):
+            raise AssertionError(f"ssm_state_update {tag}: faster than its "
+                                 f"bytes bound, so not timed from the "
+                                 f"card's memory")
+        entries.append({
+            "name": "ssm_state_update", "route": "cuda",
+            "kernel_route": "cuda",
+            "arch": arch, "archs": [arch], "shape": tag, "dtype": "bfloat16",
+            "source": "src/repro_torch/kernels/csrc/ssm_state_update.cu",
+            "replaces": None,
+            "max_abs_err": max(errors[f"{tag}-bfloat16"]),
+            "case_max_abs_err": errors,
+            "ms": ms["kernel"], "ms_repeat": ms["kernel_again"],
+            "plain_ms": ms["plain"], "plain_ms_repeat": ms["plain_again"],
+            "plain_with_copy_ms": ms["plain_copy"],
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        })
+        del args, ring
     return entries
 
 
@@ -2005,7 +2147,8 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     before it and read just after; ``want_launches`` maps each kernel
     module's name to the launches the run must make, ``want_routes`` each
     module's name to its launches by route, and ``want_windowed`` is the
-    flash launches with a sliding window among them.  For the
+    flash launches with a sliding window among them; a kernel module
+    that the two maps leave out must not launch.  For the
     encoder-decoder the encoder (over the engine's zero frames) is timed on
     its own before the decoder's prefill.  ``run`` names the run in the
     kernels line (default the arch); the stats returned carry the
@@ -2040,6 +2183,9 @@ def phase_serving(torch, counters, cfg, params, check_prefill,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa = counters["flash_attention"]
+    want_launches = {**dict.fromkeys(counters, 0), **want_launches}
+    want_routes = {**{name: dict.fromkeys(mod.ROUTES, 0)
+                      for name, mod in counters.items()}, **want_routes}
     for mod in counters.values():
         mod.launches = 0
         mod.launches_by_route = dict.fromkeys(mod.ROUTES, 0)
@@ -3316,11 +3462,13 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssm_state_update as su
     from repro_torch.kernels.ops import flash_mha, ssd_mixer
     from repro_torch.kernels.ref import attention_ref, ssd_ref
     from repro_torch.models import registry
     from repro_torch.models.module import tree_leaves
     from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.serving.decode_graph import WARMUP_STEPS
 
     # plain versions in full f32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3346,7 +3494,9 @@ def main() -> int:
     with clock("3 kernels"):
         flash = phase_kernels(torch, fa, flash_mha, attention_ref)
         scan = phase_ssd_kernel(torch, ssd, ssd_mixer, ssd_ref, ssd_chunked)
-    counters = {"flash_attention": fa, "ssd_scan": ssd}
+        update = phase_state_update_kernel(torch, su)
+    counters = {"flash_attention": fa, "ssd_scan": ssd,
+                "ssm_state_update": su}
 
     # 4. full-width qwen3 serving on the flash prefill
     with clock("4 qwen3 serving"):
@@ -3379,12 +3529,17 @@ def main() -> int:
         cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_impl="pallas")
         gen.manual_seed(SEED)
         params, _ = registry.init_params(gen, cfg)
+        # the state update: every Mamba2 layer at the graph's warm-up and
+        # capture, none at a replay
+        n_update = (WARMUP_STEPS + 1) * cfg.n_layers
         serving = phase_serving(
             torch, counters, cfg, params, check_ssm_prefill,
-            {"flash_attention": 0, "ssd_scan": cfg.n_layers},
+            {"flash_attention": 0, "ssd_scan": cfg.n_layers,
+             "ssm_state_update": n_update},
             {"flash_attention": {"sm90": 0, "simt": 0},
-             "ssd_scan": {"sm90": cfg.n_layers, "simt": 0}})
-        set_launches(scan, serving)
+             "ssd_scan": {"sm90": cfg.n_layers, "simt": 0},
+             "ssm_state_update": {"cuda": n_update}})
+        set_launches(scan + update, serving)
         del params
         torch.cuda.empty_cache()
         phase_smoke_tokens(torch, SSM_ARCH, ("ssm_impl",))
@@ -3396,12 +3551,15 @@ def main() -> int:
         gen.manual_seed(SEED)
         params, _ = registry.init_params(gen, cfg)
         n_groups = cfg.n_layers // cfg.attn_every
+        n_update = (WARMUP_STEPS + 1) * cfg.n_layers
         serving = phase_serving(
             torch, counters, cfg, params, check_hybrid_prefill,
-            {"flash_attention": n_groups, "ssd_scan": cfg.n_layers},
+            {"flash_attention": n_groups, "ssd_scan": cfg.n_layers,
+             "ssm_state_update": n_update},
             {"flash_attention": {"sm90": n_groups, "simt": 0},
-             "ssd_scan": {"sm90": cfg.n_layers, "simt": 0}})
-        set_launches(flash + scan, serving)
+             "ssd_scan": {"sm90": cfg.n_layers, "simt": 0},
+             "ssm_state_update": {"cuda": n_update}})
+        set_launches(flash + scan + update, serving)
         del params
         torch.cuda.empty_cache()
         phase_smoke_tokens(torch, HYBRID_ARCH, ("attn_impl", "ssm_impl"))
@@ -3466,7 +3624,7 @@ def main() -> int:
         phase_dryrun(torch, counters, phase4)
 
     print(f"[time] {json.dumps(clock.seconds)}", flush=True)
-    print(json.dumps({"kernels": [*flash, *scan]}), flush=True)
+    print(json.dumps({"kernels": [*flash, *scan, *update]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

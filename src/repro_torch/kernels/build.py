@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 #: every kernel source of the package, by library name
 SOURCES = ("flash_attention", "flash_attention_sm90", "ssd_scan",
-           "ssd_scan_sm90")
+           "ssd_scan_sm90", "ssm_state_update")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -166,11 +166,12 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     shared = params["shared_attn"]
 
     def mixer(lp, h, stack, i):
-        conv, state = caches[stack]["conv"], caches[stack]["state"]
+        conv, cache_i = caches[stack]["conv"], caches[stack]["state"][i]
         out, conv_i, state_i = ssm_lib.ssm_decode_step(lp, h, conv[i],
-                                                       state[i], cfg)
+                                                       cache_i, cfg)
         conv[i].copy_(conv_i)
-        state[i].copy_(state_i)
+        if state_i is not cache_i:          # else updated in place
+            cache_i.copy_(state_i)
         return out
 
     x = walk(params, cfg, x, mixer,

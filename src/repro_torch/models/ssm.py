@@ -1,6 +1,9 @@
 """Mamba2 (state-space duality) mixer: chunked SSD prefill and recurrent
 decode (arXiv:2405.21060), with the hand-written SSD chunk-scan kernel for
-the full-sequence path (``ssm_impl == 'pallas'``, kernels/ops.ssd_mixer).
+the full-sequence path (``ssm_impl == 'pallas'``, kernels/ops.ssd_mixer)
+and, on the same switch, the hand-written state-update kernel for the
+decode step (kernels/ssm_state_update.py), which on the card updates the
+state cache in place.
 
 Shapes: d_inner = expand * d_model, H heads of dim P = d_inner/H, state N.
 The SSD computation per chunk of length Q:
@@ -25,6 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssm_state_update import (ssm_state_update,
+                                                  ssm_state_update_ref)
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.module import ParamBuilder
 from repro_torch.sharding.partitioning import constrain
@@ -190,8 +195,11 @@ def init_ssm_cache(cfg: ModelConfig, n_layers: int, batch: int,
 def ssm_decode_step(params: dict, x: torch.Tensor, cache_conv: torch.Tensor,
                     cache_state: torch.Tensor, cfg: ModelConfig):
     """One-token step. x:[B,1,d]; cache_conv:[B,W-1,ch];
-    cache_state:[B,H,P,N].  Returns (y, cache_conv, cache_state), the
-    caches as new tensors."""
+    cache_state:[B,H,P,N].  Returns (y, cache_conv, cache_state): the conv
+    window as a new tensor; the state, with ``ssm_impl == 'pallas'`` on
+    the card, ``cache_state`` itself updated in place by the state-update
+    kernel, else a new tensor from the plain version
+    (:mod:`repro_torch.kernels.ssm_state_update`)."""
     d_inner, h, p, n = ssm_dims(cfg)
     b_ = x.shape[0]
     z, xbc, dt = _split_proj(params, x, cfg)
@@ -204,15 +212,11 @@ def ssm_decode_step(params: dict, x: torch.Tensor, cache_conv: torch.Tensor,
     conv = F.silu(conv.float()).to(x.dtype)
     cache_conv = window[:, 1:, :]
     x_ssm, b_ssm, c_ssm = torch.split(conv, [d_inner, n, n], dim=-1)
-    xh = x_ssm.reshape(b_, h, p).float()
-    dt1 = F.softplus(dt[:, 0].float() + params["dt_bias"].float())  # [B,H]
-    a = -torch.exp(params["A_log"].float())
-    decay = torch.exp(dt1 * a)                          # [B,H]
-    outer = torch.einsum("bhp,bn->bhpn", dt1[..., None] * xh,
-                         b_ssm.float())
-    state = cache_state * decay[..., None, None] + outer
-    y = torch.einsum("bhpn,bn->bhp", state, c_ssm.float())
-    y = y + params["D"].float()[None, :, None] * xh
+    update = (ssm_state_update if cfg.ssm_impl == "pallas"
+              else ssm_state_update_ref)
+    y, state = update(cache_state, x_ssm.reshape(b_, h, p), dt[:, 0],
+                      params["dt_bias"], params["A_log"], params["D"], b_ssm,
+                      c_ssm)
     y = y.reshape(b_, 1, d_inner).to(x.dtype)
     y = y * F.silu(z.float()).to(y.dtype)
     y = rmsnorm(y, params["norm"], cfg.norm_eps)

@@ -348,11 +348,13 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     if cfg.family == "ssm":
         conv, state = caches["ssm"]["conv"], caches["ssm"]["state"]
         for i, lp in enumerate(layers):
+            cache_i = state[i]
             out, conv_i, state_i = ssm_lib.ssm_decode_step(
                 lp, rmsnorm(x, lp["norm1"], cfg.norm_eps), conv[i],
-                state[i], cfg)
+                cache_i, cfg)
             conv[i].copy_(conv_i)
-            state[i].copy_(state_i)
+            if state_i is not cache_i:      # else updated in place
+                cache_i.copy_(state_i)
             x = x + out
         return _head(params, cfg, x), caches
     for i, ((window, chunk), (is_moe, fp)) in enumerate(

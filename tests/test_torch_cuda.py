@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels import ssm_state_update as su
 from repro_torch.kernels.ops import flash_mha, ssd_mixer
 from repro_torch.kernels.ref import attention_ref, ssd_ref
 from repro_torch.models import registry, transformer
@@ -830,17 +831,99 @@ def test_static_estimate_at_qwen3_beside_the_card(card):
           f"{peak / 2**30:.3f} GiB")
 
 
+# -- the decode step's state update (kernels/ssm_state_update.py) --------
+
+#: state and y of the kernel against the plain version on the card: the
+#: kernel's state update multiplies and adds in the plain version's order,
+#: but its exponentials and softplus are its own build of the math
+#: library's, and its y sums over N by FMAs and a butterfly of shuffles
+#: where the plain version's GEMV (cuBLAS) sums in another order
+UPDATE_TOL = 1e-5
+
+
+def _update_inputs(card, dtype, b, h, p, n, seed):
+    """One layer's state-update inputs on the card, x, B and C as the
+    decode step hands them over: views of one [B, H*P + 2N] conv row
+    buffer, dt a column block of a wider projection."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=card) * scale
+    conv = rnd(b, h * p + 2 * n, scale=0.5).to(dtype)
+    x, b_in, c_in = torch.split(conv, [h * p, n, n], dim=-1)
+    proj = rnd(b, 1, 2 * h * p + 2 * n + h).to(dtype)
+    dt = proj[:, 0, -h:]
+    return (rnd(b, h, p, n), x.reshape(b, h, p), dt,
+            rnd(h, scale=0.5).to(dtype), rnd(h, scale=0.5).to(dtype),
+            rnd(h).to(dtype), b_in, c_in)
+
+
+#: (B, H, P, N): decode_chat's and prefill_docs' step (mamba2-2.7b at B=64
+#: and 16), zamba2-7b's, and the smoke configs' N=16
+UPDATE_SHAPES = [(64, 80, 64, 128), (16, 80, 64, 128), (16, 112, 64, 64),
+                 (8, 4, 128, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,p,n", UPDATE_SHAPES)
+def test_state_update_kernel_matches_plain(card, dtype, b, h, p, n):
+    """The kernel updates the state in place (the same tensor, the same
+    storage) and gives the plain version's state and y on the same inputs,
+    with one launch a call."""
+    args = _update_inputs(card, dtype, b, h, p, n, b + h + n)
+    state = args[0]
+    ptr = state.data_ptr()
+    want_y, want_state = su.ssm_state_update_ref(*args)
+    before = su.launches
+    y, got = su.ssm_state_update(*args)
+    torch.cuda.synchronize()
+    assert su.launches == before + 1
+    assert got is state and state.data_ptr() == ptr
+    assert y.dtype == torch.float32 and y.shape == (b, h, p)
+    torch.testing.assert_close(got, want_state, atol=UPDATE_TOL,
+                               rtol=UPDATE_TOL)
+    torch.testing.assert_close(y, want_y, atol=UPDATE_TOL, rtol=UPDATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["grad", "strided_state", "x_heads_apart"])
+def test_state_update_kernel_refuses_what_it_does_not_take(card, bad):
+    """An input that requires grad, a state that is not contiguous and an x
+    whose heads are not P apart raise before any launch."""
+    args = list(_update_inputs(card, torch.float32, 2, 4, 64, 64, 0))
+    if bad == "grad":
+        args[1].requires_grad_()
+        err = RuntimeError
+    elif bad == "strided_state":
+        args[0] = torch.zeros(2, 4, 64, 128, device=card)[..., :64]
+        err = ValueError
+    else:
+        args[1] = torch.zeros(2, 64, 4, device=card).transpose(1, 2)
+        err = ValueError
+    before = su.launches
+    with pytest.raises(err):
+        su.ssm_state_update(*args)
+    assert su.launches == before
+
+
 # -- the captured decode step (serving/decode_graph.py) ------------------
 
 
 def _graph_cfg(variant):
-    """qwen3's smoke config (plain, int8) or gemma3's with a ring of 4
+    """qwen3's smoke config (plain, int8), gemma3's with a ring of 4
     slots (5 layers: 2 groups of a local and a global layer, a local
-    tail), and its bf16 weights on the card."""
+    tail), mamba2's (ssm) or zamba2's (hybrid) on the kernels
+    (``ssm_impl`` 'pallas'), and its bf16 weights on the card."""
     if variant == "ring":
         cfg = dataclasses.replace(get_smoke_config("gemma3-27b"),
                                   windowed_cache=True, sliding_window=4,
                                   n_layers=5)
+    elif variant in ("ssm", "hybrid"):
+        cfg = dataclasses.replace(
+            get_smoke_config({"ssm": "mamba2-2.7b",
+                              "hybrid": "zamba2-7b"}[variant]),
+            ssm_impl="pallas")
     else:
         cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
                                   kv_quant=variant == "int8")
@@ -849,19 +932,27 @@ def _graph_cfg(variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["plain", "int8", "ring"])
+@pytest.mark.parametrize("variant", ["plain", "int8", "ring", "ssm",
+                                     "hybrid"])
 def test_decode_graph_equals_eager_decode(card, variant):
     """A prompt of 6 tokens prefilled into the graph's caches, then 12
     steps (the ring wraps three times) replayed on the graph and run
     eagerly with an int position on a copy of the caches: logits and
-    every cache leaf equal bit for bit."""
+    every cache leaf equal bit for bit.  Both go through the state-update
+    kernel once per SSM layer per step: at the warm-up and the capture,
+    and at every eager step."""
     from repro_torch.models.module import tree_leaves
-    from repro_torch.serving.decode_graph import DecodeGraph
+    from repro_torch.serving.decode_graph import WARMUP_STEPS, DecodeGraph
     cfg, params = _graph_cfg(variant)
     gen = torch.Generator(device="cuda").manual_seed(1)
     tok = torch.randint(0, cfg.vocab, (2, 18), device=card, generator=gen)
+    before = su.launches
     with torch.inference_mode():
         graph = DecodeGraph(params, cfg, 2, 24, card)
+        n_ssm = sum(c["state"].shape[0] for k, c in graph.caches.items()
+                    if k.startswith("ssm"))
+        assert (n_ssm > 0) == (variant in ("ssm", "hybrid"))
+        assert su.launches - before == (WARMUP_STEPS + 1) * n_ssm
         assert not any(leaf.any() for leaf in tree_leaves(graph.caches))
         registry.prefill_caches(params, cfg, tok[:, :6], graph.caches)
         eager = registry.init_caches(cfg, 2, 24, card)
@@ -872,6 +963,7 @@ def test_decode_graph_equals_eager_decode(card, variant):
             got = graph.step(t, pos).clone()
             want, _ = registry.decode_step(params, cfg, t, pos, eager)
             assert torch.equal(got, want), pos
+    assert su.launches - before == (WARMUP_STEPS + 1 + 12) * n_ssm
     for mine, theirs in zip(tree_leaves(eager), tree_leaves(graph.caches)):
         assert torch.equal(mine, theirs)
 

@@ -2,8 +2,9 @@
 version and adapter (the reference's Pallas kernel runs in interpret mode),
 the chunked SSD, the mixer, decode, the cache-filling prefill against the
 reference engine's prompt replay, the registry, the serving engine, the
-early restart, the bridge at full width and the serve CLI.  The SSD kernel
-itself runs only on the card (tests/test_torch_cuda.py)."""
+early restart, the bridge at full width and the serve CLI, and the decode
+step's state-update wrapper on the CPU.  The SSD and state-update kernels
+themselves run only on the card (tests/test_torch_cuda.py)."""
 
 import dataclasses
 import subprocess
@@ -32,6 +33,7 @@ from repro_torch.core.mig_h100 import MigH100Backend
 from repro_torch.core.restart import NeedsLargerPartition
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels import ssm_state_update as su
 from repro_torch.kernels.ref import ssd_ref
 from repro_torch.models import registry, ssm
 from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
@@ -263,6 +265,177 @@ def test_ssm_decode_step_matches_reference(weights):
     for got, want in zip(out, ref):
         assert got.dtype == torch.float32
         assert _rel(got.numpy(), want) < STEP_REL
+
+
+def _update_inputs(seed, b, h, p, n, dtype):
+    """One decode step's state-update inputs: state [B,H,P,N] f32, x
+    [B,H,P], dt [B,H], dt_bias, A_log, D [H], B, C [B,N]."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * scale)
+    state = rnd(b, h, p, n)
+    rest = (rnd(b, h, p), rnd(b, h), rnd(h, scale=0.5), rnd(h, scale=0.5),
+            rnd(h), rnd(b, n, scale=0.3), rnd(b, n, scale=0.3))
+    return (state, *(t.to(dtype) for t in rest))
+
+
+def _todays_update(state, x, dt, dt_bias, a_log, d, b, c):
+    """ssm_decode_step's state update as it was written before the
+    wrapper, line for line."""
+    xh = x.float()
+    dt1 = torch.nn.functional.softplus(dt.float() + dt_bias.float())
+    a = -torch.exp(a_log.float())
+    decay = torch.exp(dt1 * a)
+    outer = torch.einsum("bhp,bn->bhpn", dt1[..., None] * xh, b.float())
+    state = state * decay[..., None, None] + outer
+    y = torch.einsum("bhpn,bn->bhp", state, c.float())
+    y = y + d.float()[None, :, None] * xh
+    return y, state
+
+
+# (B, H, P, N): the smoke configs', zamba2's and mamba2's widths, cut in B
+# and H
+UPDATE_SHAPES = [(3, 4, 128, 16), (2, 3, 64, 64), (2, 3, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", UPDATE_SHAPES, ids=str)
+def test_state_update_cpu_path_is_the_plain_expression(shape, dtype):
+    """On the CPU the wrapper computes the decode step's update exactly as
+    ssm_decode_step did before it, bit for bit, and launches nothing."""
+    args = _update_inputs(sum(shape), *shape, dtype)
+    before = su.launches
+    y, state = su.ssm_state_update(*args)
+    assert su.launches == before
+    want_y, want_state = _todays_update(*args)
+    assert y.dtype == state.dtype == torch.float32
+    assert torch.equal(y, want_y) and torch.equal(state, want_state)
+
+
+@pytest.mark.parametrize("shape", UPDATE_SHAPES, ids=str)
+def test_state_update_cpu_path_returns_a_new_state(shape):
+    """Off the card the state comes back as a new tensor and the one given
+    keeps its values: a caller that gets its cache back knows it was left
+    stale, and copies a new state in."""
+    args = _update_inputs(7, *shape, torch.float32)
+    kept = args[0].clone()
+    _, state = su.ssm_state_update(*args)
+    assert state is not args[0]
+    assert state.data_ptr() != args[0].data_ptr()
+    assert torch.equal(args[0], kept)
+    assert not torch.equal(state, kept)
+
+
+@pytest.mark.parametrize("bad", ["rank", "x_shape", "bc_shape", "bias_shape",
+                                 "state_dtype", "half", "mixed_dtype",
+                                 "state_dim"])
+def test_state_update_rejects_what_the_kernel_does_not_take(bad):
+    args = list(_update_inputs(3, 2, 3, 64, 16, torch.float32))
+    if bad == "rank":
+        args[0] = args[0][0]
+    elif bad == "x_shape":
+        args[1] = args[1][..., :32]
+    elif bad == "bc_shape":
+        args[7] = args[7][:, :8]
+    elif bad == "bias_shape":
+        args[3] = args[3][:2]
+    elif bad == "state_dtype":
+        args[0] = args[0].double()
+    elif bad == "half":
+        args[1:] = [t.half() for t in args[1:]]
+    elif bad == "mixed_dtype":
+        args[1] = args[1].to(torch.bfloat16)
+    elif bad == "state_dim":
+        args[0] = torch.zeros(2, 3, 64, 32)
+        args[6] = args[7] = torch.zeros(2, 32)
+    with pytest.raises((ValueError, TypeError)):
+        su.ssm_state_update(*args)
+
+
+def _in_place_update(calls):
+    """The card's contract on the CPU: the plain update written into the
+    state given, which is returned."""
+    def update(state, *rest):
+        calls.append(state)
+        y, new = su.ssm_state_update_ref(state, *rest)
+        state.copy_(new)
+        return y, state
+    return update
+
+
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-7b"])
+def test_decode_step_takes_a_state_updated_in_place(arch, monkeypatch):
+    """Both callers of ssm_decode_step (the ssm and the hybrid decode step)
+    give the same logits and caches, bit for bit, whether the state comes
+    back as a new tensor (the CPU) or as the cache itself updated in place
+    (the card's kernel), once per layer per step."""
+    cfg = dataclasses.replace(get_smoke_config(arch), ssm_impl="pallas")
+    gen = torch.Generator().manual_seed(0)
+    params, _ = registry.init_params(gen, cfg)
+    tok = torch.from_numpy(_tokens(cfg, 2, 5, 3))
+    out = {}
+    calls = []
+    for mode in ("new", "in_place"):
+        if mode == "in_place":
+            monkeypatch.setattr(ssm, "ssm_state_update",
+                                _in_place_update(calls))
+        caches = registry.init_caches(cfg, 2, 8)
+        logits = []
+        with torch.no_grad():
+            for pos in range(tok.shape[1]):
+                lg, caches = registry.decode_step(
+                    params, cfg, tok[:, pos:pos + 1], pos, caches)
+                logits.append(lg)
+        out[mode] = (logits, caches)
+    n_ssm = sum(c["state"].shape[0] for k, c in out["new"][1].items()
+                if k.startswith("ssm"))
+    assert len(calls) == n_ssm * tok.shape[1]
+    for got, want in zip(out["in_place"][0], out["new"][0]):
+        assert torch.equal(got, want)
+    for name, c in out["new"][1].items():
+        got = out["in_place"][1][name]
+        if isinstance(c, dict):
+            assert all(torch.equal(got[k], c[k]) for k in c), name
+        else:
+            assert torch.equal(got, c), name
+
+
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-7b"])
+def test_decode_step_on_the_plain_path_never_reaches_the_kernel(arch,
+                                                                monkeypatch):
+    """``ssm_impl`` 'xla' decodes through the plain version and never calls
+    the kernel's wrapper, and gives the 'pallas' path's logits and caches
+    bit for bit on the CPU, where the wrapper runs the plain version."""
+    cfg = get_smoke_config(arch)
+    assert cfg.ssm_impl == "xla"
+    gen = torch.Generator().manual_seed(0)
+    params, _ = registry.init_params(gen, cfg)
+    tok = torch.from_numpy(_tokens(cfg, 2, 4, 5))
+    out = {}
+    for impl in ("pallas", "xla"):
+        if impl == "xla":
+            def refuse(*args):
+                raise AssertionError("the plain path called the wrapper")
+            monkeypatch.setattr(ssm, "ssm_state_update", refuse)
+        c = dataclasses.replace(cfg, ssm_impl=impl)
+        caches = registry.init_caches(c, 2, 8)
+        logits = []
+        with torch.no_grad():
+            for pos in range(tok.shape[1]):
+                lg, caches = registry.decode_step(
+                    params, c, tok[:, pos:pos + 1], pos, caches)
+                logits.append(lg)
+        out[impl] = (logits, caches)
+    for got, want in zip(out["xla"][0], out["pallas"][0]):
+        assert torch.equal(got, want)
+    for name, c in out["pallas"][1].items():
+        got = out["xla"][1][name]
+        if isinstance(c, dict):
+            assert all(torch.equal(got[k], c[k]) for k in c), name
+        else:
+            assert torch.equal(got, c), name
 
 
 def _ref_replay(ref_p, ref_cfg, tok, context):
