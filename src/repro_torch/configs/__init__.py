@@ -17,19 +17,32 @@ ARCH_MODULES = {
 }
 
 
+#: configurations the port runs that the reference has not; kept out of
+#: ALL_ARCHS, which the parity tests against the reference walk
+PORT_ARCH_MODULES = {
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
+}
+
+
+def _module(arch: str):
+    modules = {**ARCH_MODULES, **PORT_ARCH_MODULES}
+    if arch not in modules:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(modules)}")
+    return importlib.import_module(modules[arch])
+
+
 def get_config(arch: str) -> ModelConfig:
-    if arch not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_MODULES)}")
-    return importlib.import_module(ARCH_MODULES[arch]).CONFIG
+    return _module(arch).CONFIG
 
 
 def get_smoke_config(arch: str) -> ModelConfig:
-    if arch not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_MODULES)}")
-    return importlib.import_module(ARCH_MODULES[arch]).smoke()
+    return _module(arch).smoke()
 
 
+#: the reference's ten configurations
 ALL_ARCHS = list(ARCH_MODULES)
+#: every configuration the port serves
+SERVED_ARCHS = ALL_ARCHS + list(PORT_ARCH_MODULES)
 
 #: layers of the configs whose bf16 weights outgrow one 80 GB card at full
 #: depth (grok-1-314b 588 GiB, llama4-maverick 739 GiB), cut so that they
@@ -38,5 +51,5 @@ ALL_ARCHS = list(ARCH_MODULES)
 #: phase 4f and launch/profile_serve.py serve them at these depths.
 ONE_CARD_LAYERS = {"grok-1-314b": 6, "llama4-maverick-400b-a17b": 4}
 
-__all__ = ["ALL_ARCHS", "ModelConfig", "ONE_CARD_LAYERS", "get_config",
-           "get_smoke_config", "reduce_for_smoke"]
+__all__ = ["ALL_ARCHS", "ModelConfig", "ONE_CARD_LAYERS", "SERVED_ARCHS",
+           "get_config", "get_smoke_config", "reduce_for_smoke"]

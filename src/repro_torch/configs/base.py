@@ -7,7 +7,11 @@ gemma3's 5:1 local:global sliding window), the VLM decoder (pixtral, stub
 patch embeddings), the MoE decoder (grok-1 with a MoE FFN in every layer,
 llama4-maverick with dense and MoE layers interleaved and chunked local
 attention), the Mamba2 (ssm) stack, the zamba2 hybrid and the whisper
-encoder-decoder.
+encoder-decoder.  It adds one family the reference does not have,
+``hybrid_moe`` (IBM Granite 4.0-H, ``models/hybrid_moe.py``): Mamba2 and
+attention layers, each followed by a routed MoE and a shared expert.  Its
+fields (under "hybrid MoE" below) are off by default, so the reference's
+ten configurations are unchanged; :data:`PORT_ONLY_FIELDS` names them.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio",
+                 "hybrid_moe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +77,18 @@ class ModelConfig:
     # hand-written SSD chunk-scan kernel (kernels/csrc/ssd_scan.cu)
     ssm_impl: str = "xla"
     source: str = ""                     # citation for the config
+    # -- hybrid MoE (granite 4.0-H; port only, see PORT_ONLY_FIELDS) -----------
+    attn_layers: tuple[int, ...] = ()    # attention mixers; the rest Mamba2
+    shared_ff: int = 0                   # shared expert's width (0: none)
+    embedding_multiplier: float = 1.0    # embeddings times this
+    residual_multiplier: float = 1.0     # each branch times this before its add
+    attention_multiplier: float | None = None  # softmax scale (None: 1/sqrt(hd))
+    logits_scaling: float = 1.0          # logits divided by this
+    nope: bool = False                   # no position embedding (no RoPE)
+
+    def __post_init__(self) -> None:
+        # a list from a JSON file, kept as a tuple so the config hashes
+        object.__setattr__(self, "attn_layers", tuple(self.attn_layers))
 
     @property
     def kv_groups(self) -> int:
@@ -99,6 +116,28 @@ class ModelConfig:
         if self.global_every is None:
             return False
         return (layer_idx + 1) % self.global_every == 0
+
+
+#: the fields the port adds to the reference's ModelConfig, with their
+#: defaults: the reference's configurations leave every one at its default
+PORT_ONLY_FIELDS = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+                    if f.name in ("attn_layers", "shared_ff",
+                                  "embedding_multiplier",
+                                  "residual_multiplier",
+                                  "attention_multiplier", "logits_scaling",
+                                  "nope")}
+
+
+def reference_fields(cfg: ModelConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` without :data:`PORT_ONLY_FIELDS`, which
+    must hold their defaults: what the reference's ModelConfig of the same
+    model gives."""
+    out = dataclasses.asdict(cfg)
+    for name, default in PORT_ONLY_FIELDS.items():
+        if out.pop(name) != default:
+            raise ValueError(f"{cfg.name}: {name} is set; the reference's "
+                             f"ModelConfig has no such field")
+    return out
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:

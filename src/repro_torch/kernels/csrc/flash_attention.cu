@@ -5,7 +5,8 @@
 // (_flash_kernel, launched by flash_attention's pallas_call) on the "simt"
 // route: f32 at every head dim, and bf16 at D=32 (kernels/flash_attention.py
 // ::route decides; bf16 at D 64/112/128/256 goes to flash_attention_sm90.cu).
-// It computes the same function: softmax(q k^T / sqrt(D) + mask) v with the
+// It computes the same function: softmax(q k^T / sqrt(D) + mask) v (or a
+// scale the caller gives in place of 1/sqrt(D)) with the
 // mask k <= q (causal) and q - k < window, an online softmax that keeps the
 // running max m, sum l and accumulator in f32, and the KV head h / (H/KH).
 // It also hides keys at positions >= kv_len, so zero padding added by the
@@ -434,7 +435,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KH, int Sq, int Sk, int kv_len, int causal, int window,
-           cudaStream_t stream) {
+           float scale, cudaStream_t stream) {
   using L = Tiles<T, D>;
   constexpr size_t smem = L::smem_bytes();
   // MIN_BLOCKS blocks an SM: 228 KB, 1 KB of it reserved a block
@@ -452,7 +453,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   }
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((H / KH) * (Sq / BM), B * KH);
-  const float scale_log2 = LOG2E / sqrtf((float)D);
+  const float scale_log2 =
+      scale > 0.f ? LOG2E * scale : LOG2E / sqrtf((float)D);
   flash_fwd_kernel<T, D><<<grid, L::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, KH, Sq, Sk, kv_len,
@@ -463,23 +465,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int H, int KH, int Sq, int Sk, int D, int kv_len, int causal,
-             int window, cudaStream_t stream) {
+             int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
-                           window, stream);
+                           window, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
-                           window, stream);
+                           window, scale, stream);
     case 112:
       return launch<T, 112>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
-                            window, stream);
+                            window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
-                            window, stream);
+                            window, scale, stream);
     case 256:
       return launch<T, 256>(q, k, v, o, B, H, KH, Sq, Sk, kv_len, causal,
-                            window, stream);
+                            window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -489,11 +491,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// Returns 0 on success, else a cudaError_t code.  window <= 0 means none.
+// Returns 0 on success, else a cudaError_t code.  window <= 0 means none;
+// scale <= 0 means 1/sqrt(D).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KH, int Sq, int Sk, int D,
                         int kv_len, int causal, int window, int is_bf16,
-                        void* stream) {
+                        float scale, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || Sq % BM != 0 ||
       Sk % BN != 0 || Sq <= 0 || Sk <= 0 || kv_len < 0 || kv_len > Sk ||
       (long long)B * KH > 65535) {
@@ -507,10 +510,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, Sq, Sk, D, kv_len,
-                                   causal, window, s);
+                                   causal, window, scale, s);
   }
   return dispatch<float>(q, k, v, o, B, H, KH, Sq, Sk, D, kv_len, causal,
-                         window, s);
+                         window, scale, s);
 }
 
 const char* flash_attention_error_string(int code) {

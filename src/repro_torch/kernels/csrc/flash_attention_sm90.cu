@@ -4,9 +4,10 @@
 // (_flash_kernel, launched by flash_attention's pallas_call) on the bf16
 // route at head dims 64, 112, 128 and 256; every other (dtype, head dim)
 // goes to flash_attention.cu (kernels/flash_attention.py::route decides).  It
-// computes the same function: softmax(q k^T / sqrt(D) + mask) v with the
-// mask k <= q (causal) and q - k < window, keys at positions >= kv_len
-// hidden, the KV head h / (H/KH), and an online softmax whose running max
+// computes the same function: softmax(q k^T / sqrt(D) + mask) v (or a
+// scale the caller gives in place of 1/sqrt(D)) with the mask k <= q
+// (causal) and q - k < window, keys at positions >= kv_len hidden, the KV
+// head h / (H/KH), and an online softmax whose running max
 // m, sum l and output accumulator are f32; the output is bf16.
 //
 // What bounds it.  At the serving path's prefill shape (B=8, S=512, H=16,
@@ -638,12 +639,13 @@ bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
 }
 
 // D is the code's width (64, 128 or 256); d the tensors' head dim, at most
-// D, which sets the softmax scale.
+// D, which sets the softmax scale 1/sqrt(d) unless the caller gives a
+// positive scale.
 template <int D, int NWG>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk,
            const CUtensorMap& mv, const CUtensorMap& mo, int B, int H,
            int KH, int Sq, int d, int kv_len, int causal, int window,
-           cudaStream_t stream) {
+           float scale, cudaStream_t stream) {
   constexpr int NP = D / PANEL;
   constexpr size_t smem = (size_t)(WGS + 2 * STAGES) * NP * PANEL_BYTES + 1024;
   // Set on every call: the attribute belongs to the current device.
@@ -653,7 +655,8 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk,
   if (e != cudaSuccess) return (int)e;
   constexpr int QT = WGS / NWG;
   const dim3 grid(B * KH * ((H / KH) / NWG), (Sq / BM + QT - 1) / QT);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
+  const float scale_log2 = scale > 0.f ? 1.4426950408889634f * scale
+                                       : 1.4426950408889634f / sqrtf((float)d);
   flash_fwd_sm90_kernel<D, NWG><<<grid, WGS * 128, smem, stream>>>(
       mq, mk, mv, mo, H, KH, Sq, kv_len, causal, window, scale_log2);
   return (int)cudaGetLastError();
@@ -665,13 +668,13 @@ template <int D>
 int dispatch(const CUtensorMap& mq, const CUtensorMap& mk,
              const CUtensorMap& mv, const CUtensorMap& mo, int B, int H,
              int KH, int Sq, int d, int kv_len, int causal, int window,
-             cudaStream_t stream) {
+             float scale, cudaStream_t stream) {
   if ((H / KH) % 2 == 0) {
     return launch<D, 2>(mq, mk, mv, mo, B, H, KH, Sq, d, kv_len, causal,
-                        window, stream);
+                        window, scale, stream);
   }
   return launch<D, 1>(mq, mk, mv, mo, B, H, KH, Sq, d, kv_len, causal,
-                      window, stream);
+                      window, scale, stream);
 }
 
 bool aligned16(long long stride_elems) { return stride_elems % 8 == 0; }
@@ -685,14 +688,14 @@ extern "C" {
 // address a multiple of 16 bytes); o: a contiguous [B,Sq,H,D] bf16 buffer.
 // Sq and Sk are multiples of 64, D is 64, 112, 128 or 256.  Returns 0 on
 // success, else a cudaError_t code or one of the ERR_ codes above.
-// window <= 0 means none.
+// window <= 0 means none; scale <= 0 means 1/sqrt(D).
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* o, int B, int H, int KH, int Sq, int Sk,
                              int D, long long qsb, long long qsh,
                              long long qss, long long ksb, long long ksh,
                              long long kss, long long vsb, long long vsh,
                              long long vss, int kv_len, int causal,
-                             int window, void* stream) {
+                             int window, float scale, void* stream) {
   const long long strides[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   bool ok = B > 0 && H > 0 && KH > 0 && H % KH == 0 && Sq > 0 && Sk > 0 &&
             Sq % BM == 0 && Sk % BN == 0 && Sq / BM <= 65535 && kv_len >= 0 &&
@@ -716,15 +719,15 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
     return dispatch<64>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,
-                        window, s);
+                        window, scale, s);
   }
   if (D == 256) {
     return dispatch<256>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,
-                         window, s);
+                         window, scale, s);
   }
   // D = 112 runs on the 128-column code, its second panel zero-filled
   return dispatch<128>(mq, mk, mv, mo, B, H, KH, Sq, D, kv_len, causal,
-                       window, s);
+                       window, scale, s);
 }
 
 const char* flash_attention_sm90_error_string(int code) {

@@ -2,7 +2,9 @@
 
 ``flash_attention`` takes the kernel layout (q [B,H,Sq,D], k/v [B,KH,Sk,D])
 and computes causal / sliding-window / GQA softmax attention in f32, with
-the output in q's dtype.  A tensor on the CPU goes to the plain version
+the output in q's dtype; the scores are scaled by 1/sqrt(D) unless the
+caller gives a ``scale`` (each kernel takes 0 for its own 1/sqrt(D)).  A
+tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`).  A CUDA tensor goes to one
 of two kernels, by :func:`route`, a function of dtype and head dim alone
 decided before the launch:
@@ -61,13 +63,13 @@ def _entry(route_name: str):
         fn = lib.flash_attention_sm90_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         err = lib.flash_attention_sm90_error_string
     else:
         lib = build.load("flash_attention")
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         err = lib.flash_attention_error_string
     fn.restype = ctypes.c_int
     err.argtypes = [ctypes.c_int]
@@ -122,29 +124,35 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    kv_len: int | None = None) -> torch.Tensor:
+                    kv_len: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """q: [B,H,Sq,D]; k/v: [B,KH,Sk,D] -> [B,H,Sq,D] in q's dtype.
 
-    Keys at positions >= ``kv_len`` (default Sk) are hidden.  On the sm90
-    route the result is a view of a [B,Sq,H,D] buffer.  Raises
+    Keys at positions >= ``kv_len`` (default Sk) are hidden; the scores
+    are multiplied by ``scale`` (None: 1/sqrt(D), as each kernel computes
+    it itself, so a call without a scale runs as before the argument
+    existed).  On the sm90 route the result is a view of a [B,Sq,H,D]
+    buffer.  Raises
     RuntimeError, on every device, when grad is enabled and an input
     requires grad: there is no backward.
     """
     kv_len = k.shape[2] if kv_len is None else kv_len
     _check(q, k, v, window, kv_len)
+    if scale is not None and not scale > 0:
+        raise ValueError(f"scale must be positive or None, got {scale}")
     refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             kv_len=kv_len)
+                             kv_len=kv_len, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     return _launch(route(q.dtype, q.shape[3]), q, k, v, causal=causal,
-                   window=window, kv_len=kv_len)
+                   window=window, kv_len=kv_len, scale=scale)
 
 
 def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, *, causal: bool, window: int | None,
-            kv_len: int) -> torch.Tensor:
+            kv_len: int, scale: float | None = None) -> torch.Tensor:
     """Launch the named route's kernel on checked CUDA tensors."""
     global launches, windowed_launches
     fn, err = _entry(route_name)
@@ -157,7 +165,7 @@ def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
         with torch.cuda.device(q.device):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     b, h, kh, sq, sk, d, *strides, kv_len, int(causal),
-                    window or 0, stream)
+                    window or 0, scale or 0.0, stream)
         out = out.transpose(1, 2)
     else:
         if not (q.is_contiguous() and k.is_contiguous()
@@ -171,7 +179,7 @@ def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
         with torch.cuda.device(q.device):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     b, h, kh, sq, sk, d, kv_len, int(causal), window or 0,
-                    int(q.dtype == torch.bfloat16), stream)
+                    int(q.dtype == torch.bfloat16), scale or 0.0, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention ({route_name}) launch failed: "
                            f"{err(rc).decode()} (code {rc})")

@@ -15,8 +15,10 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int | None = None) -> torch.Tensor:
-    """Model-layout flash attention.
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Model-layout flash attention, the scores times ``scale`` (default
+    1/sqrt(hd)) before the softmax.
 
     q: [B,S,H,hd]; k/v: [B,S,KH,hd] -> [B,S,H,hd].  S is zero-padded up to
     a multiple of the kernel block; the kernel hides the padded keys
@@ -37,7 +39,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return x if strided else x.contiguous()
 
     out = flash_attention(to_kernel(q), to_kernel(k), to_kernel(v),
-                          causal=causal, window=window, kv_len=s)
+                          causal=causal, window=window, kv_len=s,
+                          scale=scale)
     return out.transpose(1, 2)[:, :s]
 
 

@@ -9,8 +9,10 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
-                  kv_len: int | None = None) -> torch.Tensor:
-    """q: [B,H,Sq,D]; k/v: [B,KH,Sk,D].  Direct softmax attention in f32.
+                  kv_len: int | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """q: [B,H,Sq,D]; k/v: [B,KH,Sk,D].  Direct softmax attention in f32,
+    the scores times ``scale`` (default 1/sqrt(D)).
 
     ``kv_len`` hides keys at positions >= kv_len (zero padding); None keeps
     every key, as the reference oracle does.  Fully masked rows give 0.
@@ -20,7 +22,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     g = h // kh
     k = torch.repeat_interleave(k, g, dim=1)
     v = torch.repeat_interleave(v, g, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(d) if scale is None else s * scale
     q_pos = torch.arange(sq, device=q.device)[:, None]
     k_pos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

@@ -30,7 +30,12 @@ streaming to ``PATH`` (JSONL); the Chrome trace goes beside it
 (``.chrome.json``), and one ``[serve] trace:`` line sums up the served
 batch's run: time to first token, the median and p90 gap between tokens,
 the host ms a decode step in each span, the padding and done-row shares,
-the accountant's peak over the allocator's, and the restarts.
+the accountant's peak over the allocator's, the restarts, and for a model
+with routed experts the decode steps' expert rows routed and computed.
+``--arch granite-4.0-h-small`` serves IBM Granite 4.0-H Small (Mamba2 and
+NoPE attention layers, each with a 72-expert MoE and a shared expert; the
+SSD and flash kernels in the prefill): 60 GiB of bf16 weights at its full
+40 layers, so its ``--smoke`` config is the one for a small run.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import load_npz_params
-from repro_torch.configs import ALL_ARCHS, ModelConfig, get_config, get_smoke_config
+from repro_torch.configs import (ModelConfig, SERVED_ARCHS, get_config,
+                                 get_smoke_config)
 from repro_torch.core.mig_h100 import MigH100Backend
 from repro_torch.core.partition_state import PartitionBackend
 from repro_torch.core.restart import NeedsLargerPartition
@@ -138,6 +144,8 @@ def trace_summary(records: list[dict]) -> dict:
         "accountant_over_allocator": (last["accountant_peak_bytes"] / peak
                                       if peak else None),
         "restarts": int(sum(counters["restarts"])),
+        "moe_routed_rows": last.get("moe_routed_rows"),
+        "moe_expert_rows": last.get("moe_expert_rows"),
     }
 
 
@@ -147,7 +155,7 @@ def _fmt(value, spec: str = ".3f") -> str:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
+    ap.add_argument("--arch", required=True, choices=SERVED_ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
@@ -213,7 +221,9 @@ def main(argv: list[str] | None = None) -> None:
               f"host ms/step {host}, padding {_fmt(t['padding_share'])}, "
               f"done rows {_fmt(t['done_row_share'])}, accountant/allocator "
               f"peak {_fmt(t['accountant_over_allocator'])}, restarts "
-              f"{t['restarts']} ({args.trace}, {chrome})")
+              f"{t['restarts']}, moe rows routed/computed "
+              f"{_fmt(t['moe_routed_rows'], 'd')}/"
+              f"{_fmt(t['moe_expert_rows'], 'd')} ({args.trace}, {chrome})")
 
 
 if __name__ == "__main__":

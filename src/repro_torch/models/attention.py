@@ -1,5 +1,7 @@
 """Grouped-query attention with RoPE, qk-norm, sliding-window / chunked
 masks, KV-cache decode, cross-attention, and bidirectional (encoder) mode.
+A config may leave out RoPE (``nope``) and set the softmax scale
+(``attention_multiplier``; 1/sqrt(head dim) by default).
 
 The plain path (``attn_impl='xla'``) is exact softmax attention in PyTorch;
 ``attn_impl='pallas'`` sends full-sequence causal self attention through
@@ -102,7 +104,10 @@ def _sdpa(q, k, v, bias, cfg: ModelConfig):
     g = h // kh
     q = unflatten(q, 2, (kh, g))
     scores = einsum("bqkgd,bskd->bkgqs", q, k).float()
-    scores = scores / math.sqrt(hd)
+    if cfg.attention_multiplier is None:
+        scores = scores / math.sqrt(hd)
+    else:
+        scores = scores * cfg.attention_multiplier
     if bias.dim() == 2:
         scores = scores + bias[None, None, None]
     else:
@@ -133,7 +138,8 @@ def _attend_self(q, k, v, cfg: ModelConfig, pos: torch.Tensor, window,
     else plain attention, q-blocked when S is a multiple of the block."""
     s, block = q.shape[1], cfg.attn_q_block
     if cfg.attn_impl == "pallas" and chunk is None:
-        return ops.flash_mha(q, k, v, causal=True, window=window)
+        return ops.flash_mha(q, k, v, causal=True, window=window,
+                             scale=cfg.attention_multiplier)
     if s <= block or s % block != 0:
         return _sdpa(q, k, v, _mask_bias(pos, pos, window, chunk), cfg)
     return _sdpa_qblocked(q, k, v, pos, pos, window, chunk, True, cfg,
@@ -316,7 +322,8 @@ def mha_bidirectional(params: dict, x: torch.Tensor, cfg: ModelConfig
 
 
 def _no_rope(cfg: ModelConfig) -> bool:
-    return cfg.family == "audio"  # whisper uses learned positions
+    # whisper uses learned positions; a NoPE model (granite 4.0-H) none
+    return cfg.family == "audio" or cfg.nope
 
 
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, context: int,

@@ -159,6 +159,9 @@ def moe_tokens(params: dict, x: torch.Tensor, cfg: ModelConfig
         if n:
             rows = token[start:start + n]
             y = _experts_ffn(params, x2[rows], e)
-            acc.index_add_(0, rows, y.float() * weight[start:start + n, None])
+            # a token's k experts are distinct, so an expert's rows are too:
+            # one add a row, as index_add_ makes it (which runs slowly on
+            # small CPU tensors across threads)
+            acc[rows] += y.float() * weight[start:start + n, None]
             start += n
     return acc.to(x.dtype).reshape(shape)

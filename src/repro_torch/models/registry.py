@@ -1,7 +1,8 @@
 """Unified model API over every family of the reference, routed by family
 as in the reference: the encoder-decoder (whisper) to :mod:`models.encdec`,
 the hybrid (zamba2) to :mod:`models.hybrid`, the dense, VLM, MoE and ssm
-stacks to :mod:`models.transformer`.
+stacks to :mod:`models.transformer`; and the port's own hybrid MoE (IBM
+Granite 4.0-H) to :mod:`models.hybrid_moe`.
 
 A "batch" is a dict:
     tokens   [B, S] int             (all families)
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, hybrid, transformer
+from repro_torch.models import encdec, hybrid, hybrid_moe, transformer
 from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.models.transformer import DecoderOutput
 
@@ -32,6 +33,8 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
         return encdec.init_encdec(generator, cfg, device)
     if cfg.family == "hybrid":
         return hybrid.init_hybrid(generator, cfg, device)
+    if cfg.family == "hybrid_moe":
+        return hybrid_moe.init_hybrid_moe(generator, cfg, device)
     return transformer.init_decoder(generator, cfg, device)
 
 
@@ -40,6 +43,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> DecoderOutput:
         return encdec.forward(params, cfg, batch["tokens"], batch["frames"])
     if cfg.family == "hybrid":
         return hybrid.forward(params, cfg, batch["tokens"])
+    if cfg.family == "hybrid_moe":
+        return hybrid_moe.forward(params, cfg, batch["tokens"])
     return transformer.forward(params, cfg, batch["tokens"],
                                extra_embeddings=batch.get("patches"))
 
@@ -60,6 +65,8 @@ def init_caches(cfg: ModelConfig, batch: int, context: int,
         return encdec.init_caches(cfg, batch, context, device)
     if cfg.family == "hybrid":
         return hybrid.init_caches(cfg, batch, context, device)
+    if cfg.family == "hybrid_moe":
+        return hybrid_moe.init_caches(cfg, batch, context, device)
     return transformer.init_caches(cfg, batch, context, device)
 
 
@@ -86,12 +93,24 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         return encdec.decode_step(params, cfg, token, index, caches)
     if cfg.family == "hybrid":
         return hybrid.decode_step(params, cfg, token, index, caches)
+    if cfg.family == "hybrid_moe":
+        return hybrid_moe.decode_step(params, cfg, token, index, caches,
+                                      capacity_moe=capacity_moe)
     return transformer.decode_step(params, cfg, token, index, caches,
                                    capacity_moe=capacity_moe)
 
 
 def supports_long_context(cfg: ModelConfig) -> bool:
     return cfg.has_subquadratic_attention
+
+
+def moe_layers(cfg: ModelConfig) -> int:
+    """The layers with a routed MoE FFN (0 without experts)."""
+    if not cfg.n_experts:
+        return 0
+    if cfg.family == "hybrid_moe":
+        return cfg.n_layers
+    return cfg.n_layers // cfg.moe_every
 
 
 # -- logical-axis spec trees (read by the dry run to place each tensor) -------
@@ -160,8 +179,9 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if cfg.family == "audio":
         return encdec.forward(params, cfg, batch["tokens"], batch["frames"],
                               last_only=True).logits
-    if cfg.family == "hybrid":
-        return hybrid.forward(params, cfg, batch["tokens"],
+    if cfg.family in ("hybrid", "hybrid_moe"):
+        module = hybrid if cfg.family == "hybrid" else hybrid_moe
+        return module.forward(params, cfg, batch["tokens"],
                               last_only=True).logits
     return transformer.forward(params, cfg, batch["tokens"],
                                extra_embeddings=batch.get("patches"),
@@ -179,6 +199,8 @@ def prefill_caches(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         return encdec.prefill(params, cfg, tokens, caches)
     if cfg.family == "hybrid":
         return hybrid.prefill(params, cfg, tokens, caches)
+    if cfg.family == "hybrid_moe":
+        return hybrid_moe.prefill(params, cfg, tokens, caches)
     return transformer.prefill(params, cfg, tokens, caches)
 
 

@@ -35,7 +35,11 @@ decode row-steps (``decode_row_steps``: steps x B) and those of rows
 already done (``decode_rows_done``), the accountant's peak
 (``accountant_peak_bytes``), the allocator's on the card
 (``allocator_peak_bytes``: the caller resets it), and whether the run
-raised the early restart (``restarts``).
+raised the early restart (``restarts``); for a model with routed experts
+also the decode steps' expert rows the requests asked for
+(``moe_routed_rows``: the tokens decoded x k x MoE layers) and those the
+capacity dispatch computed (``moe_expert_rows``: steps x B x capacity x
+experts x MoE layers).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from repro_torch.core.partition_state import PartitionBackend, PartitionProfile
 from repro_torch.core.restart import NeedsLargerPartition, early_restart_target
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.models.moe import capacity
 from repro_torch.models.module import tree_leaves
 from repro_torch.obs.trace import Tracer, wall_instant, wall_span
 from repro_torch.serving.decode_graph import EagerDecode, decoder_for
@@ -191,6 +196,7 @@ class ServeEngine:
                           "accountant_peak_bytes":
                               self.accountant.peak_in_use,
                           "restarts": restarts}
+                counts.update(_moe_rows(cfg, b, steps, kept))
                 if self.device.type == "cuda":
                     counts["allocator_peak_bytes"] = (
                         torch.cuda.max_memory_allocated(self.device))
@@ -226,8 +232,13 @@ class ServeEngine:
         frac = min(1.0, upto / self.ecfg.max_context)
         if self.cfg.family == "ssm":
             frac = 1.0  # constant-size recurrent state
+        # the hybrid MoE's Mamba2 states are whole from the start; its K/V
+        # grow with the context
+        fixed = (pytree_nbytes(caches["ssm"])
+                 if self.cfg.family == "hybrid_moe" else 0)
         act = self._params_bytes * 0.002 + 4 * self.cfg.d_model * 1024
-        return self._params_bytes + cache_total * frac + act
+        return (self._params_bytes + fixed + (cache_total - fixed) * frac
+                + act)
 
     def _note_iteration(self, caches, upto: int) -> None:
         live = self._live_bytes(caches, upto)
@@ -266,6 +277,21 @@ class ServeEngine:
                          peak_gib=pred.peak_mem_bytes / GB,
                          target=target.name)
             raise NeedsLargerPartition(target)
+
+
+def _moe_rows(cfg: ModelConfig, batch: int, steps: int, kept: int
+              ) -> dict[str, int]:
+    """The decode steps' expert rows: those the requests routed (``kept``
+    tokens decoded, k experts each, in every MoE layer) and those the
+    captured step's capacity dispatch computed (every expert its capacity
+    at one token a group, for each of the ``batch`` rows, every step);
+    none without experts."""
+    layers = registry.moe_layers(cfg)
+    if not layers:
+        return {}
+    return {"moe_routed_rows": kept * cfg.top_k * layers,
+            "moe_expert_rows": (steps * batch * capacity(cfg, 1)
+                                * cfg.n_experts * layers)}
 
 
 def _synthetic_profile(mem_gb: float) -> PartitionProfile:

@@ -14,6 +14,7 @@ from repro.models import registry as ref_registry
 from repro.models.module import cast_tree as ref_cast_tree
 from repro_torch.bridge import caches_from_numpy, params_from_numpy
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import reference_fields
 from repro_torch.kernels import ops
 from repro_torch.models import attention, registry, transformer
 
@@ -94,7 +95,7 @@ def test_vlm_forward_with_patches_matches_reference(impl):
     ref_cfg = ref_get_smoke_config("pixtral-12b")
     cfg = dataclasses.replace(get_smoke_config("pixtral-12b"),
                               attn_impl=impl)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+    assert reference_fields(cfg) == dataclasses.asdict(
         dataclasses.replace(ref_cfg, attn_impl=impl))
     ref_p, _ = ref_registry.init_params(jax.random.PRNGKey(4), ref_cfg)
     ref_p = ref_cast_tree(ref_p, jnp.float32)
